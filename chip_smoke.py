@@ -8,7 +8,9 @@ exits non-zero without printing a result:
 
   0. device: nvidia-smi name and power limit, torch/CUDA versions; no GPU
      is an error.
-  1. build: compiles kernel K1 (csrc/merge_dedup.cu) from the checkout.
+  1. build: compiles kernels K1, K2 and K3 (csrc/merge_dedup.cu,
+     count_join.cu, merge128.cu) from the checkout, one nvcc each, in
+     parallel.
   2. K1 against its plain PyTorch twin on the card, bitwise: the merge
      cases of the JAX package's kernel tests, the maximum key, counts at
      the cap, empty inputs, runs spanning many tiles, an overflowing
@@ -22,9 +24,28 @@ exits non-zero without printing a result:
      the reference README (2^29-slot store, 2^27-slot buffer) on 3 M
      synthetic reads; counts K1 launches, checks the .ser header, reports
      k-mers/s and peak device memory.
+  5. K2 (count join) and K3 (node-store fold) against their plain PyTorch
+     versions on the card, bitwise: the cases of the JAX package's kernel
+     tests, empty and all-matching inputs, the maximum key, traveled
+     entries, sentinels, k = 62 poly-T k-mers, an overflowing fold, and
+     one call each at the main path's real shape (9 x 2^24 probes against
+     phase 2's 100 M-entry store; a 12 M-entry node store against 2^22
+     survivors), timed against the plain versions.
+  6. parity: the pipeline CLI (reads -> unitigs -> contigs) on the bench's
+     end-to-end shape with --device cpu and --device cuda; unitigs.fa and
+     contigs.fa must be byte-identical and the CUDA run must launch K1,
+     K2 and K3; then the Contiger CLI with --device cuda on the CPU run's
+     .ser, whose unitigs.fa must equal the CPU pipeline's and which must
+     launch K2 and K3.
+  7. main path at real size: the pipeline CLI on a 12 Mbp genome (30x of
+     150 bp reads); prints the phase breakdown, peak device memory, node,
+     unitig and contig counts and N50; the contigs must total within 10%
+     of the genome, every kernel must launch, and the native contraction
+     library must load.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels with their launch counts and times.  Work files go to
+the kernels with their launch counts in phase 7 and their times.  Work
+files go to
 build/chip_smoke/ (ignored by git) and are removed at the end.
 """
 
@@ -151,6 +172,206 @@ def k1_cases(device):
             yield name + "_sweep", s.store, buf[:0], s.n_main, kb, True, C
 
 
+_SENT64 = np.uint64(0xFFFFFFFFFFFFFFFF)
+
+
+def k2_cases(device):
+    """(name, store, n_main, queries, key_bits) tuples for K2: a merged
+    spectrum store and ascending raw query keys with a sentinel tail, made
+    from numpy seeds through the port's own store functions."""
+    from sh_assembly_tpu_torch.ops import bits
+    from sh_assembly_tpu_torch.ops import spectrum as sp
+
+    def spectrum(keys, counts, trav, key_bits, capacity=None):
+        C = capacity or 1 << int(np.ceil(np.log2(len(keys) + 1)))
+        return sp.from_host(keys, counts, C, 1 << 10, key_bits,
+                            traveled=trav, device=device)
+
+    def case(seed, key_bits, n_spec, n_q, present=0.5, n_sent=37):
+        rng = np.random.default_rng(seed)
+        keys = np.unique(rng.integers(0, 1 << key_bits, size=n_spec,
+                                      dtype=np.uint64))
+        counts = rng.integers(1, 200, size=len(keys))
+        trav = (rng.random(len(keys)) < 0.4).astype(np.uint8)
+        n_p = int(n_q * present)
+        q = np.sort(np.concatenate([
+            rng.choice(keys, size=n_p),
+            rng.integers(0, 1 << key_bits, size=n_q - n_p, dtype=np.uint64)]))
+        q = np.concatenate([q, np.full(n_sent, _SENT64)])
+        s = spectrum(keys, counts, trav, key_bits)
+        return s.store, s.n_main, bits.from_u64_np(q, device), key_bits
+
+    # the cases of tests/test_join_pallas.py
+    for i, (kb, n_spec, n_q) in enumerate([(22, 700, 900), (22, 2000, 300),
+                                           (36, 1500, 1500)]):
+        yield (f"join{i}_kb{kb}", *case(i, kb, n_spec, n_q))
+    yield ("all_match", *case(3, 30, 5000, 20000, present=1.0, n_sent=0))
+    # many blocks, each bounding its own key range of the store
+    yield ("blocks_kb37", *case(4, 37, 200_000, 300_000))
+    rng = np.random.default_rng(5)
+    q = np.concatenate([np.sort(rng.integers(0, 1 << 30, size=3000,
+                                             dtype=np.uint64)),
+                        np.full(100, _SENT64)])
+    empty = spectrum(np.zeros(0, np.uint64), np.zeros(0, np.int64), None, 30,
+                     capacity=1024)
+    yield ("empty_store", empty.store, 0, bits.from_u64_np(q, device), 30)
+    s = spectrum(np.arange(10, dtype=np.uint64), np.ones(10, np.int64), None,
+                 30)
+    yield ("only_sentinels", s.store, s.n_main,
+           bits.from_u64_np(np.full(300, _SENT64), device), 30)
+    # traveled entries, counts at the cap, the maximum key (whose key part
+    # equals the sentinel's), sentinel queries
+    for kb in (22, 37, 56):
+        kmax = (1 << kb) - 1
+        cap = sp.count_cap(kb)
+        keys = np.array([0, 5, kmax - 1, kmax], np.uint64)
+        s = spectrum(keys, np.array([1, cap, 7, cap]), np.array(
+            [1, 0, 1, 1], np.uint8), kb)
+        q = np.array([0, 0, 1, 5, kmax - 2, kmax - 1, kmax, kmax]
+                     + [int(_SENT64)] * 5, np.uint64)
+        yield (f"maxkey_kb{kb}", s.store, s.n_main,
+               bits.from_u64_np(q, device), kb)
+    # the maximum key queried but absent: only sentinels carry its key part
+    s = spectrum(np.array([1, 2], np.uint64), np.array([3, 4]), None, 22)
+    q = np.array([1, (1 << 22) - 1, int(_SENT64)], np.uint64)
+    yield ("maxkey_absent", s.store, s.n_main, bits.from_u64_np(q, device), 22)
+
+
+def k2_big_case(store, n_main, key_bits, n_q=9 << 24, seed=6):
+    """The graph probes' real shape against phase 2's store: 9 x 2^24
+    ascending probe keys, half of them stored keys, with a sentinel tail."""
+    import torch
+
+    from sh_assembly_tpu_torch.ops import bits, spectrum as sp
+
+    g = torch.Generator(device=store.device).manual_seed(seed)
+    half = n_q // 2
+    pick = torch.randint(0, n_main, (half,), generator=g, device=store.device)
+    hits = bits.srl(store[pick], sp.payload_bits(key_bits))
+    fresh = torch.randint(0, 1 << key_bits, (n_q - half - n_q // 64,),
+                          generator=g, device=store.device)
+    q = torch.sort(torch.cat([hits, fresh])).values
+    return torch.cat([q, torch.full((n_q // 64,), -1, dtype=torch.int64,
+                                    device=store.device)])
+
+
+def _rand_kmers(rng, n: int, k: int):
+    """n random left-aligned packed k-mers as numpy uint64 (hi, lo)."""
+    hi = np.frombuffer(rng.bytes(8 * n), np.uint64).copy()
+    lo = np.frombuffer(rng.bytes(8 * n), np.uint64).copy()
+    if 2 * k <= 64:
+        hi &= ~np.uint64((1 << (64 - 2 * k)) - 1)
+        lo[:] = 0
+    else:
+        lo &= ~np.uint64((1 << (128 - 2 * k)) - 1)
+    return hi, lo
+
+
+def _k3_stream(device, hi, lo, seed, pad=0):
+    """A (hi, lo, nflag) stream sorted on (hi, lo, nflag), pad sentinels
+    appended, as device tensors (nflag = 1 - seed)."""
+    from sh_assembly_tpu_torch.ops import bits
+
+    nf = np.where(seed, 0, 1).astype(np.uint8)
+    o = np.lexsort((nf, lo, hi))
+    hi = np.concatenate([hi[o], np.full(pad, _SENT64)])
+    lo = np.concatenate([lo[o], np.full(pad, _SENT64)])
+    nf = np.concatenate([nf[o], np.ones(pad, np.uint8)])
+    import torch
+
+    return (bits.from_u64_np(hi, device), bits.from_u64_np(lo, device),
+            torch.from_numpy(nf).to(device))
+
+
+def k3_cases(device):
+    """(name, a_hi, a_lo, a_nf, na, b_hi, b_lo, b_nf, cap) tuples for K3:
+    a node store (na live entries, sentinel tail) and sorted flush
+    survivors (sentinel tail), made from numpy seeds."""
+
+    def case(name, seed, k, na, nb, overlap, cap=None, pad=0, seed_p=0.4,
+             rep=1):
+        rng = np.random.default_rng(seed)
+        hi, lo = _rand_kmers(rng, 2 * (na + nb) + 64, k)
+        a = np.arange(na) // rep  # rep > 1: runs of duplicates in a
+        n_ov = min(int(nb * overlap), na)
+        b = np.concatenate([rng.choice(max(na, 1), size=n_ov) // rep,
+                            na + rng.integers(0, na + nb + 64,
+                                              size=nb - n_ov)])
+        cap = cap or na + nb + 16
+        ah, al, af = _k3_stream(device, hi[a], lo[a],
+                                rng.random(na) < seed_p, cap - na)
+        bh, bl, bf = _k3_stream(device, hi[b], lo[b],
+                                rng.random(nb) < seed_p, pad)
+        return name, ah, al, af, na, bh, bl, bf, cap
+
+    # the cases of tests/test_merge128_pallas.py (k = 31)
+    for i, (na, nb, ov) in enumerate([(500, 700, 0.3), (1500, 100, 0.9),
+                                      (0, 800, 0.0), (800, 0, 0.0)]):
+        yield case(f"m128_{i}", i, 31, na, nb, ov)
+    yield case("long_runs", 4, 31, 2000, 1500, 1.0, seed_p=0.1, rep=300)
+    # seeded copies on both sides, duplicates inside the survivors
+    yield case("seeded_both", 5, 47, 3000, 6000, 0.9, seed_p=0.5, pad=50)
+    # many tiles, k = 47 (the main path's k), a sentinel tail
+    yield case("tiles_k47", 6, 47, 40_000, 60_000, 0.5, pad=5000)
+    yield case("k63", 7, 63, 3000, 3000, 0.5, pad=10)
+    # more survivors than the store holds: n_live reports the true count
+    yield case("overflow", 8, 47, 5000, 8000, 0.2, cap=9000)
+    yield case("empty", 9, 47, 0, 0, 0.0, pad=7)
+    # k = 62 poly-T: hi is all ones, so only the pair marks a sentinel
+    rng = np.random.default_rng(10)
+    hi, lo = _rand_kmers(rng, 400, 62)
+    t_hi = np.full(8, _SENT64)
+    t_lo = np.full(8, np.uint64(0xFFFFFFFFFFFFFFF0))
+    t_lo[1:] &= ~(np.arange(1, 8, dtype=np.uint64) << np.uint64(4))
+    a_hi, a_lo = np.concatenate([hi[:300], t_hi[:4]]), np.concatenate(
+        [lo[:300], t_lo[:4]])
+    b_hi, b_lo = np.concatenate([hi[200:], t_hi[2:]]), np.concatenate(
+        [lo[200:], t_lo[2:]])
+    ah, al, af = _k3_stream(device, a_hi, a_lo, rng.random(304) < 0.5, 208)
+    bh, bl, bf = _k3_stream(device, b_hi, b_lo, rng.random(206) < 0.5, 20)
+    yield "k62_polyT", ah, al, af, 304, bh, bl, bf, 512
+
+
+def k3_big_case(device, n_store=12_000_000, cap=1 << 24, n_b=1 << 22,
+                k=47, seed=9):
+    """One node-store fold at the main path's real shape, generated on the
+    card: a 2^24-slot store with ~12 M live k-mers against 2^22 sorted
+    survivors, half of them stored k-mers, a quarter sentinels."""
+    import torch
+
+    from sh_assembly_tpu_torch.ops import kmerpack as kp
+
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rand_words(n):
+        return torch.randint(-(1 << 63), (1 << 63) - 1, (n,), generator=g,
+                             device=device)
+
+    lo_mask = ~((1 << (128 - 2 * k)) - 1)
+    hi, lo = rand_words(n_store), rand_words(n_store) & lo_mask
+    perm = kp.sort_pairs(hi, lo)
+    a_hi = torch.full((cap,), -1, dtype=torch.int64, device=device)
+    a_lo = torch.full((cap,), -1, dtype=torch.int64, device=device)
+    a_nf = torch.ones(cap, dtype=torch.uint8, device=device)
+    a_hi[:n_store], a_lo[:n_store] = hi[perm], lo[perm]
+    a_nf[:n_store] = (torch.rand(n_store, generator=g, device=device)
+                      > 0.1).to(torch.uint8)
+    n_hit, n_sent = n_b // 2, n_b // 4
+    pick = torch.randint(0, n_store, (n_hit,), generator=g, device=device)
+    n_new = n_b - n_hit - n_sent
+    b_hi = torch.cat([hi[pick], rand_words(n_new),
+                      torch.full((n_sent,), -1, dtype=torch.int64,
+                                 device=device)])
+    b_lo = torch.cat([lo[pick], rand_words(n_new) & lo_mask,
+                      torch.full((n_sent,), -1, dtype=torch.int64,
+                                 device=device)])
+    b_nf = (torch.rand(n_b, generator=g, device=device) > 0.1).to(torch.uint8)
+    b_nf[n_b - n_sent:] = 1
+    perm = kp.sort_pairs(b_hi, b_lo, b_nf)
+    return (a_hi, a_lo, a_nf, n_store, b_hi[perm].contiguous(),
+            b_lo[perm].contiguous(), b_nf[perm].contiguous(), cap)
+
+
 def big_case(device, n_live=100_000_000, n_buf=1 << 27, key_bits=37,
              capacity=1 << 29, seed=5):
     """One merge at the counting stage's real size, generated on the card:
@@ -201,14 +422,22 @@ def phase0_device():
 
 
 def phase1_build():
-    from sh_assembly_tpu_torch.ops import _build, merge_cuda
+    from concurrent.futures import ThreadPoolExecutor
+
+    from sh_assembly_tpu_torch.ops import _build, join_cuda, merge128_cuda, \
+        merge_cuda
 
     print("== phase 1: build", flush=True)
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)  # build from source
     t0 = time.time()
-    merge_cuda.build()
-    print(f"built merge_dedup (sm_90a) in {time.time() - t0:.2f} s "
-          f"-> {_build.lib_path('merge_dedup')}")
+    # one nvcc per source, all started together
+    with ThreadPoolExecutor(3) as ex:
+        for f in [ex.submit(m.build)
+                  for m in (merge_cuda, join_cuda, merge128_cuda)]:
+            f.result()
+    for name in ("merge_dedup", "count_join", "merge128"):
+        print(f"built {name} (sm_90a) -> {_build.lib_path(name)}")
+    print(f"  all kernels built in {time.time() - t0:.2f} s")
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -280,9 +509,12 @@ def phase2_k1(device):
     return err, timing
 
 
-def _run_cli(argv):
-    """Run the port's CLI in-process, echoing and capturing its log."""
-    from sh_assembly_tpu_torch.cli import cqf_denoise
+def _run_cli(argv, cli: str = "cqf_denoise"):
+    """Run one of the port's CLIs in-process, echoing and capturing its
+    log; for cqf_denoise, also parse its final counters."""
+    import importlib
+
+    main = importlib.import_module(f"sh_assembly_tpu_torch.cli.{cli}").main
 
     class Tee(io.TextIOBase):
         def __init__(self):
@@ -295,10 +527,10 @@ def _run_cli(argv):
     tee = Tee()
     t0 = time.time()
     with contextlib.redirect_stderr(tee):
-        rc = cqf_denoise.main(argv)
+        rc = main(argv)
     wall = time.time() - t0
     if rc != 0:
-        raise RuntimeError(f"cqf_denoise exited {rc}")
+        raise RuntimeError(f"{cli} exited {rc}")
     stats = {}
     for line in tee.buf.getvalue().splitlines():
         if "kmers=" in line and "merges=" in line:
@@ -397,6 +629,264 @@ def phase4_main():
     return launches
 
 
+def _max_abs(pairs) -> int:
+    """Largest absolute difference over (kernel, plain) tensor pairs."""
+    return max((int((a.long() - b.long()).abs().max()) if a.numel() else 0)
+               for a, b in pairs)
+
+
+def _check_k2(name, kern, plain) -> int:
+    import torch
+
+    torch.cuda.synchronize()
+    if not torch.equal(kern, plain):
+        bad = int((kern != plain).sum())
+        raise AssertionError(f"K2 != plain version on {name}: {bad} counts "
+                             f"differ")
+    return _max_abs([(kern, plain)])
+
+
+def _check_k3(name, kern, plain) -> int:
+    import torch
+
+    torch.cuda.synchronize()
+    if int(kern[3]) != int(plain[3]) or not all(
+            torch.equal(a, b) for a, b in zip(kern[:3], plain[:3])):
+        bad = [int((a != b).sum()) for a, b in zip(kern[:3], plain[:3])]
+        raise AssertionError(
+            f"K3 != plain version on {name}: n_live {int(kern[3])} vs "
+            f"{int(plain[3])}, differing (hi, lo, nflag) entries {bad}")
+    return _max_abs(zip(kern[:3], plain[:3]))
+
+
+def phase5_k2_k3(device):
+    """K2 and K3 against their plain versions, bitwise, then timed at the
+    main path's real shapes.  Returns (k2 err, k3 err, timing)."""
+    import torch
+
+    from sh_assembly_tpu_torch.ops import join_cuda as jc
+    from sh_assembly_tpu_torch.ops import merge128_cuda as m3
+
+    print("== phase 5: K2 and K3 against their plain versions", flush=True)
+    err2 = err3 = 0
+    for name, store, n_main, q, kb in k2_cases(device):
+        err2 = max(err2, _check_k2(
+            name, jc.count_join_cuda(store, n_main, q, kb),
+            jc.count_join_plain(store, n_main, q, kb)))
+        print(f"  K2 {name}: n_main={n_main} queries={q.numel()} kb={kb} "
+              f"identical")
+    for name, *args in k3_cases(device):
+        kern = m3.merge128_cuda(*args)
+        err3 = max(err3, _check_k3(name, kern, m3.merge128_plain(*args)))
+        if name == "overflow" and int(kern[3]) <= args[-1]:
+            raise AssertionError("the K3 overflow case did not overflow")
+        print(f"  K3 {name}: na={args[3]} nb={args[4].numel()} "
+              f"cap={args[-1]} -> n_live={int(kern[3])} identical")
+
+    timing = {}
+    store, _, n, kb, C = big_case(device)
+    q = k2_big_case(store, n, kb)
+    print(f"  K2 real shape: n_main={n} slots={C} key_bits={kb} "
+          f"queries={q.numel()}", flush=True)
+    err2 = max(err2, _check_k2("real shape", jc.count_join_cuda(
+        store, n, q, kb), jc.count_join_plain(store, n, q, kb)))
+    ms = _time_ms(lambda: jc.count_join_cuda(store, n, q, kb), 7)
+    plain_ms = _time_ms(lambda: jc.count_join_plain(store, n, q, kb), 3)
+    timing["count_join"] = (ms, plain_ms)
+    print(f"  K2 real shape identical; K2 median {ms:.3f} ms, plain median "
+          f"{plain_ms:.3f} ms ({q.numel() / ms / 1e6:.1f} G queries/s)")
+    del store, q
+    torch.cuda.empty_cache()
+
+    args = k3_big_case(device)
+    print(f"  K3 real shape: na={args[3]} cap={args[-1]} "
+          f"nb={args[4].numel()}", flush=True)
+    kern = m3.merge128_cuda(*args)
+    err3 = max(err3, _check_k3("real shape", kern, m3.merge128_plain(*args)))
+    n_live = int(kern[3])
+    del kern
+    ms = _time_ms(lambda: m3.merge128_cuda(*args), 7)
+    plain_ms = _time_ms(lambda: m3.merge128_plain(*args), 3)
+    timing["merge128"] = (ms, plain_ms)
+    moved = (args[3] + args[4].numel()) * 17 + args[-1] * 17
+    print(f"  K3 real shape: n_live={n_live} identical; K3 median {ms:.3f} "
+          f"ms, plain median {plain_ms:.3f} ms; K3 moves >= "
+          f"{moved / 2**30:.2f} GiB -> {moved / ms / 1e6:.1f} GB/s")
+    del args
+    torch.cuda.empty_cache()
+    return err2, err3, timing
+
+
+def _fasta_lengths(path: str) -> np.ndarray:
+    lens, n = [], 0
+    with open(path) as f:
+        for line in f:
+            if line.startswith(">"):
+                if n:
+                    lens.append(n)
+                n = 0
+            else:
+                n += len(line.strip())
+    if n:
+        lens.append(n)
+    return np.asarray(lens, np.int64)
+
+
+def _n50(lens: np.ndarray) -> int:
+    s = np.sort(lens)[::-1]
+    c = np.cumsum(s)
+    return int(s[np.searchsorted(c, c[-1] / 2)]) if len(s) else 0
+
+
+def _reset_launches():
+    from sh_assembly_tpu_torch.ops import join_cuda, merge128_cuda, \
+        merge_cuda
+
+    for m in (merge_cuda, join_cuda, merge128_cuda):
+        m.LAUNCHES = 0
+
+
+def _launches():
+    from sh_assembly_tpu_torch.ops import join_cuda, merge128_cuda, \
+        merge_cuda
+
+    return {"merge_dedup": merge_cuda.LAUNCHES,
+            "count_join": join_cuda.LAUNCHES,
+            "merge128": merge128_cuda.LAUNCHES}
+
+
+# the bench's end-to-end shape (bench.py): a 1 Mbp genome, 300 k reads of
+# 100 bp, k = 47 and its flags
+E2E = dict(genome_len=1_000_000, n_reads=300_000, read_len=100,
+           sub_rate=0.001, n_rate=0.0, seed=11)
+E2E_FLAGS = ["-k", "47", "-n", "1000000", "-N", str(300_000 * 54),
+             "-e", "0.001", "--deNoise", "0"]
+
+
+def phase6_pipeline_parity():
+    print("== phase 6: CPU and CUDA pipeline (reads -> contigs) identity",
+          flush=True)
+    d = os.path.join(WORK, "e2e")
+    os.makedirs(d, exist_ok=True)
+    write_fastq(os.path.join(d, "reads.fastq"), **E2E)
+    out = {}
+    ser = os.path.join(d, "e2e.ser")
+    for dev in ("cpu", "cuda"):
+        _reset_launches()
+        _, _, wall = _run_cli(E2E_FLAGS + [
+            "-i", os.path.join(d, "ReadFiles.txt"),
+            "-o", os.path.join(d, f"contigs_{dev}.fa"),
+            "--unitigs", os.path.join(d, f"unitigs_{dev}.fa"),
+            "--device", dev] + (["--save-cqf", ser] if dev == "cpu" else []),
+            cli="pipeline")
+        launches = _launches()
+        files = [open(os.path.join(d, f"{f}_{dev}.fa"), "rb").read()
+                 for f in ("unitigs", "contigs")]
+        print(f"  {dev}: wall {wall:.1f} s, kernel launches {launches}, "
+              f"unitigs.fa {len(files[0])} B, contigs.fa {len(files[1])} B")
+        out[dev] = (files, launches)
+    for i, f in enumerate(("unitigs.fa", "contigs.fa")):
+        if out["cpu"][0][i] != out["cuda"][0][i]:
+            raise AssertionError(f"CPU and CUDA {f} differ")
+    if any(out["cpu"][1].values()):
+        raise AssertionError("a kernel launched in the CPU run")
+    if not all(out["cuda"][1].values()):
+        raise AssertionError(f"a kernel never launched in the CUDA run: "
+                             f"{out['cuda'][1]}")
+    print("  unitigs.fa and contigs.fa byte-identical")
+
+    # the Contiger's own entry point on the card, from the CPU run's .ser
+    _reset_launches()
+    _, _, wall = _run_cli([
+        "-k", E2E_FLAGS[1], "-i", os.path.join(d, "ReadFiles.txt"),
+        "-c", ser, "-o", os.path.join(d, "unitigs_cli.fa"),
+        "--device", "cuda"], cli="contiger")
+    launches = _launches()
+    print(f"  cli.contiger cuda: wall {wall:.1f} s, kernel launches "
+          f"{launches}")
+    if open(os.path.join(d, "unitigs_cli.fa"), "rb").read() != \
+            out["cpu"][0][0]:
+        raise AssertionError("cli.contiger's CUDA unitigs.fa differs from "
+                             "the CPU pipeline's")
+    if not (launches["count_join"] and launches["merge128"]):
+        raise AssertionError(f"K2 or K3 never launched in cli.contiger: "
+                             f"{launches}")
+    print("  cli.contiger's CUDA unitigs.fa byte-identical to the CPU "
+          "pipeline's")
+
+
+# the main path at the size of a genome users assemble: S. cerevisiae
+# (12 Mbp), 30x of 150 bp reads from both strands
+GENOME = dict(genome_len=12_000_000, n_reads=2_400_000, read_len=150,
+              sub_rate=0.00234, n_rate=0.0, seed=12)
+GENOME_FLAGS = ["-k", "47", "-n", "12000000",
+                "-N", str(2_400_000 * (150 - 47 + 1)),
+                "-e", "0.00234", "--endDeNoise"]
+
+
+def phase7_genome():
+    import torch
+
+    from sh_assembly_tpu_torch.io import native
+    from sh_assembly_tpu_torch.models import contiger
+    from sh_assembly_tpu_torch.utils import profiling
+
+    print("== phase 7: reads -> contigs on a 12 Mbp genome", flush=True)
+    d = os.path.join(WORK, "genome")
+    os.makedirs(d, exist_ok=True)
+    t0 = time.time()
+    write_fastq(os.path.join(d, "reads.fastq"), **GENOME)
+    print(f"  wrote {GENOME['n_reads']} reads x {GENOME['read_len']} bp "
+          f"from a {GENOME['genome_len']} bp genome in "
+          f"{time.time() - t0:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # count calls of the torch contraction, which runs only when the native
+    # one is missing or fails
+    fallback = []
+    torch_contract = contiger.contract_paths
+    contiger.contract_paths = lambda cn: fallback.append(1) or \
+        torch_contract(cn)
+    _reset_launches()
+    try:
+        _, logtxt, wall = _run_cli(GENOME_FLAGS + [
+            "-i", os.path.join(d, "ReadFiles.txt"),
+            "-o", os.path.join(d, "contigs.fa"),
+            "--unitigs", os.path.join(d, "unitigs.fa"), "--device", "cuda"],
+            cli="pipeline")
+    finally:
+        contiger.contract_paths = torch_contract
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    lib = native._load()
+    if lib is None or not hasattr(lib, "shc_contract") or fallback:
+        raise AssertionError("the native contraction library did not run")
+    print("  phase breakdown:")
+    for name, s in sorted(profiling.GLOBAL.stats.items(),
+                          key=lambda kv: -kv[1].seconds):
+        print(f"    {name:<26} {s.seconds:9.3f} s ({s.calls} calls)")
+    nodes = phantoms = 0
+    for line in logtxt.splitlines():
+        if "distinct solid k-mers" in line:
+            nodes = int(line.split("] ")[-1].split()[0])
+        if "phantom hash-collision nodes added" in line:
+            phantoms = int(line.split("] ")[-1].split()[0])
+    ulens = _fasta_lengths(os.path.join(d, "unitigs.fa"))
+    clens = _fasta_lengths(os.path.join(d, "contigs.fa"))
+    total = int(clens.sum())
+    print(f"  nodes {nodes}, phantoms {phantoms}; unitigs {len(ulens)} "
+          f"(N50 {_n50(ulens)}); contigs {len(clens)}, total {total} bp, "
+          f"N50 {_n50(clens)}")
+    print(f"  pipeline wall {wall:.2f} s; peak device memory "
+          f"{peak / 2**30:.2f} GiB; kernel launches {launches}")
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel never launched: {launches}")
+    if abs(total - GENOME["genome_len"]) > 0.1 * GENOME["genome_len"]:
+        raise AssertionError(f"contigs total {total} bp not within 10% of "
+                             f"the {GENOME['genome_len']} bp genome")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -411,20 +901,27 @@ def main() -> int:
         dev = torch.device("cuda", 0)
         err, timing = phase2_k1(dev)
         phase3_parity()
-        launches = phase4_main()
+        phase4_main()
+        err2, err3, timing5 = phase5_k2_k3(dev)
+        phase6_pipeline_parity()
+        launches = phase7_genome()
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     loaded = [m for m in sys.modules
               if m == "sh_assembly_tpu" or m.startswith("sh_assembly_tpu.")]
     if loaded:
         raise AssertionError(f"JAX package modules loaded: {loaded}")
-    ms, plain_ms = timing["merge"]
+    timing.update(timing5)
+    rows = [("merge_dedup", "merge", "merge_pallas.py:524", err),
+            ("count_join", "count_join", "join_pallas.py:257", err2),
+            ("merge128", "merge128", "merge128_pallas.py:284", err3)]
     print(json.dumps({"kernels": [{
-        "name": "merge_dedup", "route": "cuda",
-        "source": "sh_assembly_tpu_torch/csrc/merge_dedup.cu",
-        "replaces": "sh_assembly_tpu/ops/merge_pallas.py:524",
-        "launches": launches, "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms}]}))
+        "name": name, "route": "cuda",
+        "source": f"sh_assembly_tpu_torch/csrc/{name}.cu",
+        "replaces": f"sh_assembly_tpu/ops/{where}",
+        "launches": launches[name], "max_abs_err": e,
+        "ms": timing[t][0], "plain_ms": timing[t][1]}
+        for name, t, where, e in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,1153 @@
+"""Contiger — unitig graph construction, on a PyTorch device.
+
+Counterpart of ``sh_assembly_tpu/models/contiger.py``, with the same stages
+and the same output (``unitigs.fa`` byte-identical):
+
+  A. node enumeration: stream read batches, stage every N-free window's
+     canonical packed k-mer and hash key into a pending buffer; at each
+     flush sort it by key, count it against the spectrum (kernel K2,
+     ``ops/join_cuda``), keep the solid ones, and fold them into the sorted
+     node store (kernel K3, ``ops/merge128_cuda``, at every k up to 63:
+     the port keeps the seed flag in its own tensor, so the TPU kernel's
+     k <= 62 bound does not apply).
+  B. phantom closure: successor and suffix-sibling probes whose hash key
+     is counted but whose k-mer is not a node join the node set, round by
+     round over the frontier, to the fixpoint.
+  C. edge probing: the 8 successor probes of both orientations of every
+     node (one ``join2`` for the successor indices, one K2 count join for
+     the 9N counts) give out-degrees and contractible chain edges.
+  D. contraction on the host (``cpp/contract.cpp``) and the vectorised
+     host assembly: sequences, medians, links, the solid-seed component
+     filter, FASTA.  Copied from the JAX package; every device array
+     reaches it as numpy uint64 through ``bits.to_u64_np``, because the
+     assembly compares k-mer words unsigned.
+
+The node order decides the unitig numbering in ``unitigs.fa``: phantoms
+are appended in the order the closure finds them, and a round whose output
+is truncated to the frontier's padded extent re-probes the whole store.
+So the pad extents (``padded`` and ``_frontier_pad``) are kept exactly,
+though the port compiles nothing per shape.
+
+Node k-mers are (hi, lo) int64 pairs (``ops/kmerpack``), (-1, -1) the
+sentinel; seed flags are uint8 (1 = some read's middle k-mer).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Iterable
+
+import numpy as np
+import torch
+
+from .. import config as cfg
+from ..io import fastq
+from ..ops import bits, kmerpack as kp, kmerpack_np as kpn, merge128_cuda, \
+    nthash, packio, spectrum as sp
+from ..utils import dna, profiling
+from ..utils.logging import log
+
+NODE_SENTINEL = np.uint64(0xFFFFFFFFFFFFFFFF)
+SENT = bits.SENTINEL
+
+
+# --------------------------------------------------------------------------
+# Stage A: node enumeration
+# --------------------------------------------------------------------------
+
+@dataclass
+class _Pending:
+    """Staged candidate windows; only the first ``n`` entries are live."""
+
+    hi: torch.Tensor  # int64[cap] canonical packed k-mer
+    lo: torch.Tensor  # int64[cap]
+    key: torch.Tensor  # int64[cap] spectrum hash key, -1 = invalid window
+    seed: torch.Tensor  # uint8[cap] 1 = read-middle window
+    n: int = 0
+
+    @classmethod
+    def make(cls, cap: int, device) -> "_Pending":
+        def full():
+            return torch.full((cap,), SENT, dtype=torch.int64, device=device)
+
+        return cls(full(), full(), full(),
+                   torch.zeros(cap, dtype=torch.uint8, device=device))
+
+
+@dataclass
+class _NodeStore:
+    """Sorted node store: ``n`` live entries, sentinel tail."""
+
+    hi: torch.Tensor  # int64[node_cap]
+    lo: torch.Tensor  # int64[node_cap]
+    seed: torch.Tensor  # uint8[node_cap]
+    n: int = 0
+
+
+def _stage_super(pend: _Pending, packed, nmask, lengths, seed_cols, k: int,
+                 key_bits: int, L: int) -> None:
+    """Stage one superstep of read rows into the pending buffer.
+
+    Every valid N-free window's canonical packed k-mer and hash key are
+    appended raw at offset ``pend.n`` (invalid lanes as sentinels), written
+    in place.  Dedup, the count filter and the store fold wait for
+    _flush_pending.  seed_cols[r] marks the column of the source read's
+    middle k-mer (-1 = none): those windows carry a seed flag.
+    """
+    codes = packio.unpack(packed, nmask, L)
+    SB = codes.shape[0]
+    W = L - k + 1
+    dev = codes.device
+    keys, valid = nthash.windowed_canonical(codes, lengths, k)
+    keys = nthash.mask_keys(keys, key_bits)
+
+    # windows containing any non-ACGT base are not graph nodes
+    cbad = torch.cumsum((codes >= 4).int(), dim=1)
+    nfree = (cbad[:, k - 1:] - torch.cat(
+        [torch.zeros((SB, 1), dtype=cbad.dtype, device=dev),
+         cbad[:, :W - 1]], dim=1)) == 0
+    ok = valid & nfree
+    is_seed = ok & (torch.arange(W, device=dev)[None, :]
+                    == seed_cols.long()[:, None])
+
+    hi, lo = kp.pack_windows(codes, k)
+    rhi, rlo = kp.revcomp_packed(hi, lo, k)
+    chi, clo, _ = kp.canonicalize(hi, lo, rhi, rlo)
+
+    flat = ok.reshape(-1)
+    n = flat.numel()
+    s = slice(pend.n, pend.n + n)
+    pend.hi[s] = torch.where(flat, chi.reshape(-1), SENT)
+    pend.lo[s] = torch.where(flat, clo.reshape(-1), SENT)
+    pend.key[s] = torch.where(flat, keys.reshape(-1), SENT)
+    pend.seed[s] = is_seed.reshape(-1).to(torch.uint8)
+    pend.n += n
+
+
+def _flush_pending(spec: sp.Spectrum, store: _NodeStore, pend: _Pending,
+                   key_bits: int, abundance_min: int) -> int:
+    """Count-filter the live pending candidates, fold the solid ones into
+    the node store (updated in place), empty the buffer; returns the
+    fold's n_live, which may exceed the store's capacity.
+
+    The buffer is sorted by key (stable) so K2 can answer it; the solid
+    survivors are sorted by (hi, lo, inverted seed flag), so each k-mer's
+    seeded copy comes first and the keep-first fold ORs the seed flags.
+    """
+    n = pend.n
+    order = torch.sort(bits.flip(pend.key[:n]), stable=True).indices
+    counts = sp.query_join_sorted(spec, pend.key[:n][order], key_bits)
+    solid = counts >= abundance_min
+    chi = torch.where(solid, pend.hi[:n][order], SENT)
+    clo = torch.where(solid, pend.lo[:n][order], SENT)
+    cnf = torch.where(solid, 1 - pend.seed[:n][order], 1).to(torch.uint8)
+    perm = kp.sort_pairs(chi, clo, cnf)
+    cap = store.hi.shape[0]
+    o_hi, o_lo, o_nf, n_live = merge128_cuda.merge128(
+        store.hi, store.lo, 1 - store.seed, store.n,
+        chi[perm], clo[perm], cnf[perm], cap)
+    n_live = int(n_live)  # one host sync per flush
+    store.hi, store.lo, store.seed = o_hi, o_lo, 1 - o_nf
+    store.n = min(n_live, cap)
+    pend.n = 0
+    return n_live
+
+
+def collect_nodes(spec: sp.Spectrum, batches: Iterable[fastq.Batch], k: int,
+                  key_bits: int, abundance_min: int,
+                  super_batch: int = 8, node_cap: int | None = None,
+                  pend_supers: int = 8):
+    """Distinct solid canonical k-mers over all read batches -> sorted
+    (hi, lo, seed) tensors on the spectrum's device (seed: uint8, 1 iff the
+    k-mer is some read's middle k-mer; None if no batch carried seed
+    metadata, and the caller falls back to the component-contains-solid
+    rule).
+
+    Supersteps stage candidate windows into a pending buffer sized for
+    ~pend_supers supersteps; the count filter and the node-store fold run
+    once per buffer fill.  The buffer's sizing follows the JAX package's
+    exactly, including query_join's two batch budgets.
+    """
+    dev = spec.store.device
+    if node_cap is None:
+        # nodes are a subset of distinct solid hash keys, plus rare extra
+        # k-mers aliased by hash collisions: ndistinct with 1/16 slack
+        nd = max(int(spec.ndistinct), 1024)
+        node_cap = 1 << int(np.ceil(np.log2(nd + nd // 16 + 1024)))
+    p = sp.payload_bits(key_bits)
+    run_bits = 63 - (p - 1)
+    max_by_runid = max((1 << run_bits) - spec.capacity - 1, 1 << 10)
+    max_rows_total = min((1 << (p - 1)) // 2, max_by_runid)
+
+    store = _NodeStore(
+        hi=torch.full((node_cap,), SENT, dtype=torch.int64, device=dev),
+        lo=torch.full((node_cap,), SENT, dtype=torch.int64, device=dev),
+        seed=torch.zeros(node_cap, dtype=torch.uint8, device=dev))
+    # running peak: a mid-run flush can overflow (truncating the largest
+    # keys) and later flushes can land back at or below cap, so the final
+    # count alone cannot prove no truncation happened
+    n_peak = 0
+    pend: _Pending | None = None
+    pend_cap = 0
+    saw_seed_meta = False
+
+    stack_p, stack_m, stack_l, stack_s = [], [], [], []
+    rows = 0
+    Lp = None
+
+    def flush_pending():
+        nonlocal n_peak
+        n_peak = max(n_peak, _flush_pending(spec, store, pend, key_bits,
+                                            abundance_min))
+
+    def to_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def stage():
+        nonlocal pend, pend_cap
+        nonlocal stack_p, stack_m, stack_l, stack_s, rows
+        if not stack_p:
+            return
+        packed = np.concatenate(stack_p, axis=0)
+        nmask = np.concatenate(stack_m, axis=0)
+        lens = np.concatenate(stack_l, axis=0)
+        seedc = np.concatenate(stack_s, axis=0)
+        nq = packed.shape[0] * (Lp - k + 1)
+        if pend is not None and nq > pend_cap:
+            # a later superstep outgrew the first one's sizing: drain and
+            # reallocate (only mixed batch_rows streams hit this)
+            flush_pending()
+            pend = None
+        if pend is None:
+            pend_cap = 1 << int(np.ceil(np.log2(max(nq, 1024))))
+            while pend_cap < pend_supers * nq and pend_cap * 2 <= \
+                    max_rows_total:
+                pend_cap *= 2
+            pend = _Pending.make(pend_cap, dev)
+        # flush BEFORE staging when this superstep would not fit
+        if pend.n + nq > pend_cap:
+            flush_pending()
+        _stage_super(pend, to_dev(packed), to_dev(nmask),
+                     to_dev(lens.astype(np.int32)), to_dev(seedc), k,
+                     key_bits, Lp)
+        stack_p, stack_m, stack_l, stack_s = [], [], [], []
+        rows = 0
+
+    for b in batches:
+        if isinstance(b, fastq.PackedBatch):
+            Lp_b = b.row_len
+            p_, m_ = b.packed, b.nmask
+        else:
+            codes = b.codes
+            L = codes.shape[1]
+            Lp_b = (L + 7) // 8 * 8
+            if Lp_b != L:
+                codes = np.pad(codes, ((0, 0), (0, Lp_b - L)),
+                               constant_values=5)
+            p_, m_ = packio.pack_np(codes)
+        if Lp is None:
+            Lp = Lp_b
+        if Lp_b != Lp:
+            raise ValueError("mixed batch read lengths")
+        W = Lp - k + 1
+        batch_rows = p_.shape[0]
+        if batch_rows * W > max_rows_total:
+            raise ValueError(
+                f"one batch's {batch_rows * W} windows exceed the query_join "
+                f"budget {max_rows_total}; shrink reads_per_batch")
+        # stage BEFORE appending when the stacked windows would blow the
+        # query budget (appending first could exceed it by one batch)
+        if rows and (rows + batch_rows) * W > max_rows_total:
+            stage()
+        stack_p.append(p_)
+        stack_m.append(m_)
+        stack_l.append(b.lengths)
+        if b.seed_col is not None:
+            saw_seed_meta = True
+            stack_s.append(np.asarray(b.seed_col, np.int32))
+        else:
+            stack_s.append(np.full(batch_rows, -1, np.int32))
+        rows += batch_rows
+        if rows >= super_batch * batch_rows:
+            stage()
+    stage()
+    if pend is not None:
+        flush_pending()
+
+    if n_peak >= node_cap:
+        raise RuntimeError(
+            f"node store overflow: {n_peak} distinct solid k-mers reached cap "
+            f"{node_cap}; pass a larger node_cap")
+    n = store.n
+    return (store.hi[:n], store.lo[:n],
+            store.seed[:n] if saw_seed_meta else None)
+
+
+# --------------------------------------------------------------------------
+# Stages B+C: phantom closure and graph probes
+# --------------------------------------------------------------------------
+
+def _rol(x: torch.Tensor, s: int) -> torch.Tensor:
+    s = s % 64
+    if s == 0:
+        return x
+    return (x << s) | bits.srl(x, 64 - s)
+
+
+def _node_hashes(hi, lo, k: int):
+    """(fh, rh) of each node's canonical-orientation k-mer (O(k) vector
+    ops)."""
+    seeds = nthash.seed_table(hi.device)
+    cseeds = nthash.cseed_table(hi.device)
+    fh = torch.zeros_like(hi)
+    rh = torch.zeros_like(hi)
+    for j in range(k):
+        b = kp.base_at(hi, lo, j, k).long()
+        fh = fh ^ _rol(seeds[b], (k - 1 - j) % 64)
+        rh = rh ^ _rol(cseeds[b], j % 64)
+    return fh, rh
+
+
+def _succ_probes(hi, lo, rhi, rlo, fh0, rh0, k: int, mask: int):
+    """The 8 successor probes of both orientations of every node: the
+    batched form of the reference's get_unitig_forward point queries.
+
+    Returns (probe_keys[8], succ_hi[8], succ_lo[8] canonical packed
+    successor k-mers, succ_flip[8] int32 orientation flips).
+    """
+    seeds = nthash.seed_table(hi.device)
+    cseeds = nthash.cseed_table(hi.device)
+    probe_keys, succ_hi, succ_lo, succ_flip = [], [], [], []
+    for o in range(2):
+        ohi = hi if o == 0 else rhi
+        olo = lo if o == 0 else rlo
+        ofh = fh0 if o == 0 else rh0
+        orh = rh0 if o == 0 else fh0
+        out_b = kp.first_base(ohi, olo, k).long()
+        for X in range(4):
+            sfh = _rol(ofh, 1) ^ _rol(seeds[out_b], k % 64) ^ seeds[X]
+            srh = _rol(orh, 63) ^ _rol(cseeds[out_b], 63) ^ \
+                _rol(cseeds[X], (k - 1) % 64)
+            probe_keys.append(bits.umin(sfh, srh) & mask)
+            shi, slo = kp.shift_in_base(ohi, olo, X, k)
+            srchi, srclo = kp.revcomp_packed(shi, slo, k)
+            schi, sclo, sflip = kp.canonicalize(shi, slo, srchi, srclo)
+            succ_hi.append(schi)
+            succ_lo.append(sclo)
+            succ_flip.append(sflip.int())
+    return probe_keys, succ_hi, succ_lo, succ_flip
+
+
+def _sibling_probes(hi, lo, rhi, rlo, fh0, rh0, k: int, mask: int):
+    """The 8 suffix-sibling candidate probes of both orientations.
+
+    Siblings share a junction's (k-1)-suffix (the reference's before-side
+    spawns); the hash replaces the base-0 term of the ntHash XOR.
+
+    Returns (probe_keys[8], sib_hi[8], sib_lo[8] canonical packed k-mers).
+    """
+    seeds = nthash.seed_table(hi.device)
+    cseeds = nthash.cseed_table(hi.device)
+    probe_keys, sib_hi, sib_lo = [], [], []
+    for o in range(2):
+        ohi = hi if o == 0 else rhi
+        olo = lo if o == 0 else rlo
+        ofh = fh0 if o == 0 else rh0
+        orh = rh0 if o == 0 else fh0
+        t0 = kp.first_base(ohi, olo, k).long()
+        for Y in range(4):
+            sfh = ofh ^ _rol(seeds[t0], (k - 1) % 64) ^ \
+                _rol(seeds[Y], (k - 1) % 64)
+            srh = orh ^ cseeds[t0] ^ cseeds[Y]
+            probe_keys.append(bits.umin(sfh, srh) & mask)
+            whi, wlo = kp.replace_first_base(ohi, olo, Y, k)
+            wrchi, wrclo = kp.revcomp_packed(whi, wlo, k)
+            wchi, wclo, _wf = kp.canonicalize(whi, wlo, wrchi, wrclo)
+            sib_hi.append(wchi)
+            sib_lo.append(wclo)
+    return probe_keys, sib_hi, sib_lo
+
+
+def phantom_candidates(spec: sp.Spectrum, store_hi, store_lo, hi, lo,
+                       k: int, key_bits: int, abundance_min: int):
+    """Successor and sibling k-mers of the FRONTIER (hi, lo) that pass the
+    count filter but are not in the node store (store_hi, store_lo).
+
+    The reference probes neighbours by hash count only, so a probe whose
+    key aliases a counted key spawns a k-mer that appears in no read; these
+    "phantom" nodes join the node set.
+
+    Returns (ph_hi[F], ph_lo[F], n_new, n_found): the distinct phantoms in
+    sorted order, truncated and sentinel-padded to the frontier size F;
+    n_new = min(n_found, F) and n_found the true total (host ints), so the
+    caller can detect truncation.
+    """
+    N = hi.shape[0]
+    dev = hi.device
+    mask = (1 << key_bits) - 1
+    valid = ~((hi == SENT) & (lo == SENT))
+    fh0, rh0 = _node_hashes(hi, lo, k)
+    rhi, rlo = kp.revcomp_packed(hi, lo, k)
+    probe_keys, succ_hi, succ_lo, _ = _succ_probes(
+        hi, lo, rhi, rlo, fh0, rh0, k, mask)
+    skeys, shi2, slo2 = _sibling_probes(hi, lo, rhi, rlo, fh0, rh0, k, mask)
+    probe_keys += skeys
+    P = len(probe_keys)  # 16 probes per node
+    all_hi = torch.cat(succ_hi + shi2)
+    all_lo = torch.cat(succ_lo + slo2)
+    del succ_hi, succ_lo, shi2, slo2
+    all_j = kp.join2(store_hi, store_lo, all_hi, all_lo).reshape(P, N)
+    counts = sp.query_join_auto(
+        spec, torch.cat(probe_keys), key_bits).reshape(P, N)
+    del probe_keys
+    ph = ((counts >= abundance_min) & (all_j < 0) & valid[None, :]) \
+        .reshape(-1)
+    # a probe k-mer is never the sentinel (its low bits are zero for
+    # k <= 63), so compacting before the sort gives the JAX package's
+    # sort-then-drop-sentinels result
+    ph_hi, ph_lo = all_hi[ph], all_lo[ph]
+    perm = kp.sort_pairs(ph_hi, ph_lo)
+    sh, sl = ph_hi[perm], ph_lo[perm]
+    first = torch.ones(sh.shape, dtype=torch.bool, device=dev)
+    first[1:] = (sh[1:] != sh[:-1]) | (sl[1:] != sl[:-1])
+    u_hi, u_lo = sh[first], sl[first]
+    n_found = u_hi.numel()
+    n_new = min(n_found, N)
+    oh = torch.full((N,), SENT, dtype=torch.int64, device=dev)
+    ol = torch.full((N,), SENT, dtype=torch.int64, device=dev)
+    oh[:n_new], ol[:n_new] = u_hi[:n_new], u_lo[:n_new]
+    return oh, ol, n_new, n_found
+
+
+def _frontier_pad(n_frontier: int, store_pad: int) -> int:
+    """Frontier pad extent: the smallest rung of a fixed ladder that holds
+    the frontier, capped at the store's own pad extent.  Kept exactly as
+    in the JAX package: phantom_candidates truncates its output to this
+    extent, which decides when a round re-probes the whole store and so
+    the order phantoms are appended in (and the unitig numbering)."""
+    for cand in (1 << 14, 1 << 22):
+        if n_frontier <= cand <= store_pad:
+            return cand
+    return store_pad
+
+
+def close_over_phantoms(spec: sp.Spectrum, hi, lo, k: int, key_bits: int,
+                        abundance_min: int, max_rounds: int = 8):
+    """Close the node set (hi, lo tensors) over phantom successors (see
+    phantom_candidates).  Rounds after the first probe only the frontier
+    (last round's additions).
+
+    Returns (hi, lo, n_phantoms); appended phantoms keep the closure's
+    discovery order.  Raises RuntimeError when the closure has not
+    converged after max_rounds rounds (the node set would silently diverge
+    from the reference candidate semantics; raise key_bits).
+    """
+    dev = hi.device
+
+    def padded(h, l, at_least=1024):
+        n = h.shape[0]
+        Np = 1 << max(int(np.ceil(np.log2(max(n, at_least)))), 10)
+        hp = torch.full((Np,), SENT, dtype=torch.int64, device=dev)
+        lp = torch.full((Np,), SENT, dtype=torch.int64, device=dev)
+        hp[:n] = h
+        lp[:n] = l
+        return hp, lp
+
+    total_new = 0
+    f_hi, f_lo = hi, lo  # round-1 frontier = everything
+    for _ in range(max_rounds):
+        sh, sl = padded(hi, lo)
+        fh, fl = padded(f_hi, f_lo, _frontier_pad(f_hi.shape[0], sh.shape[0]))
+        ph_h, ph_l, n_new, n_found = phantom_candidates(
+            spec, sh, sl, fh, fl, k, key_bits, abundance_min)
+        del sh, sl, fh, fl
+        if n_new == 0:
+            break
+        f_hi, f_lo = ph_h[:n_new], ph_l[:n_new]
+        hi = torch.cat([hi, f_hi])
+        lo = torch.cat([lo, f_lo])
+        total_new += n_new
+        if n_found > n_new:
+            # output was truncated to the frontier extent: re-probe with
+            # the full store as the frontier so the dropped candidates are
+            # rediscovered (they are still absent from the store)
+            f_hi, f_lo = hi, lo
+    else:
+        raise RuntimeError(
+            f"phantom closure not converged after {max_rounds} rounds "
+            f"({total_new} phantom nodes added): the node set would "
+            f"silently diverge from reference candidate semantics; raise "
+            f"key_bits (hash collisions are pathologically dense) or "
+            f"max_rounds")
+    if total_new:
+        log(f"[Contiger] {total_new} phantom hash-collision nodes added "
+            f"(reference candidate semantics)")
+    return hi, lo, total_new
+
+
+def build_oriented_graph(spec: sp.Spectrum, hi, lo, k: int, key_bits: int,
+                         abundance_min: int):
+    """Probe successors for both orientations of every node.
+
+    Returns (nsucc[2N], chain_next[2N], node_counts[N]) int32 tensors.
+    Oriented index a = 2*i + o with o=0 the canonical orientation, o=1 its
+    reverse complement.  chain_next[a] = oriented successor index when the
+    a->succ edge is a contractible chain edge, else -1.
+    """
+    N = hi.shape[0]
+    dev = hi.device
+    mask = (1 << key_bits) - 1
+    # padding entries (both words all-ones) never equal a left-aligned real
+    # k-mer for k <= 63
+    valid = ~((hi == SENT) & (lo == SENT))
+
+    fh0, rh0 = _node_hashes(hi, lo, k)
+    node_keys = bits.umin(fh0, rh0) & mask
+    rhi, rlo = kp.revcomp_packed(hi, lo, k)
+
+    # the 8 successor probes per node; one sort-join resolves all 8N
+    # successor-index lookups, one K2 count join all 9N count queries
+    probe_keys8, succ_hi, succ_lo, succ_flip = _succ_probes(
+        hi, lo, rhi, rlo, fh0, rh0, k, mask)
+    all_j = kp.join2(hi, lo, torch.cat(succ_hi),
+                     torch.cat(succ_lo)).reshape(8, N)
+    del succ_hi, succ_lo
+    all_counts = sp.query_join_auto(
+        spec, torch.cat([node_keys] + probe_keys8), key_bits).reshape(9, N)
+    del probe_keys8
+    node_counts = all_counts[0]
+
+    nsucc, succ_idx, succ_orient = [], [], []
+    for o in range(2):
+        ecount = torch.zeros(N, dtype=torch.int32, device=dev)
+        uj = torch.zeros(N, dtype=torch.int32, device=dev)
+        up = torch.zeros(N, dtype=torch.int32, device=dev)
+        for X in range(4):
+            e = (all_counts[1 + o * 4 + X] >= abundance_min) & valid
+            ecount += e.int()
+            # the unique successor (when ecount == 1)
+            uj += torch.where(e, all_j[o * 4 + X], 0)
+            up += torch.where(e, succ_flip[o * 4 + X], 0)
+        nsucc.append(ecount)
+        succ_idx.append(uj)
+        succ_orient.append(up)
+
+    # interleave to oriented arrays [2N]: a = 2*i + o
+    nsucc_a = torch.stack(nsucc, dim=1).reshape(-1)
+    sj = torch.stack(succ_idx, dim=1).reshape(-1)
+    sp_ = torch.stack(succ_orient, dim=1).reshape(-1)
+
+    target = torch.where(sj >= 0, 2 * sj + sp_, -1).int()
+    flip_target = torch.where(sj >= 0, 2 * sj + (1 - sp_), -1)
+    # where nsucc != 1, sj sums several successors and may point past the
+    # end: clamp the gather (as XLA does); ok is false there anyway
+    ft = flip_target.clamp(0, 2 * N - 1).long()
+    ok = (nsucc_a == 1) & (target >= 0) & (nsucc_a[ft] == 1)
+    a_idx = torch.arange(2 * N, dtype=torch.int32, device=dev)
+    # no self-chain (homopolymer 1-cycles are cycles) and no immediate
+    # hairpin a -> flip(a)
+    ok = ok & (target != a_idx) & (target != (a_idx ^ 1))
+    chain_next = torch.where(ok, target, -1).int()
+    return nsucc_a, chain_next, node_counts
+
+
+# --------------------------------------------------------------------------
+# Stage D: contraction
+# --------------------------------------------------------------------------
+
+def contract_paths_host(chain_next):
+    """Chain contraction on the host -> (head, dist, is_tail) numpy.
+
+    A native sequential walk over the pure paths/cycles of the chain forest
+    (cpp/contract.cpp); falls back to the pointer-jumping contract_paths
+    when the native library is unavailable.  Semantics identical.
+    """
+    import ctypes
+
+    from ..io import native
+
+    if isinstance(chain_next, torch.Tensor):
+        chain_next = chain_next.cpu().numpy()
+    cn = np.ascontiguousarray(np.asarray(chain_next), np.int32)
+    M = len(cn)
+    lib = native._load()
+    if lib is not None and hasattr(lib, "shc_contract"):
+        if not getattr(lib, "_shc_typed", False):
+            lib.shc_contract.restype = ctypes.c_int
+            lib.shc_contract.argtypes = [
+                ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_int32),
+                ctypes.POINTER(ctypes.c_int32),
+                ctypes.POINTER(ctypes.c_uint8)]
+            lib._shc_typed = True
+        head = np.empty(M, np.int32)
+        dist = np.empty(M, np.int32)
+        is_tail = np.empty(M, np.uint8)
+        rc = lib.shc_contract(
+            cn.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), M,
+            head.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            dist.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            is_tail.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+        if rc == 0:
+            return (head.astype(np.int32), dist.astype(np.int32),
+                    is_tail.astype(bool))
+    h, d, t = contract_paths(torch.from_numpy(cn))
+    return h.numpy(), d.numpy(), t.numpy()
+
+
+def contract_paths(chain_next: torch.Tensor):
+    """Pointer-jumping contraction over the oriented chain forest.
+
+    Returns (head[2N], dist[2N] int32, is_tail[2N] bool) tensors.  Cycles
+    are cut at their minimum oriented index before the final doubling.
+    The fallback and cross-check of contract_paths_host.
+    """
+    M = chain_next.shape[0]
+    dev = chain_next.device
+    cn = chain_next.long()
+    idx = torch.arange(M, device=dev)
+    rounds = int(np.ceil(np.log2(max(M, 2)))) + 1
+
+    # prev[b] = a for each chain edge a->b; chain targets are unique (the
+    # indeg-1 condition), so the scatter has no conflicts
+    src_ok = cn >= 0
+    prev = torch.full((M,), -1, dtype=torch.int64, device=dev)
+    prev.index_put_((cn[src_ok],), idx[src_ok])
+
+    has_prev = prev >= 0
+    par0 = torch.where(has_prev, prev, idx)
+
+    # phase 1: cycle detection (reached a head within M steps?)
+    par = par0
+    reached = ~has_prev
+    for _ in range(rounds):
+        reached = reached | reached[par]
+        par = par[par]
+    in_cycle = ~reached
+
+    # phase 2: min oriented index per cycle
+    par = par0
+    lab = idx
+    for _ in range(rounds):
+        lab = torch.minimum(lab, lab[par])
+        par = par[par]
+    cut = in_cycle & (lab == idx)
+    has_prev = has_prev & ~cut
+
+    # phase 3: head + offset doubling
+    par = torch.where(has_prev, prev, idx)
+    off = has_prev.long()
+    for _ in range(rounds):
+        off = off + off[par]
+        par = par[par]
+    head = par
+    is_tail = (cn < 0) | (in_cycle & (cn == head))
+    return head.int(), off.int(), is_tail
+
+
+# --------------------------------------------------------------------------
+# Host assembly: vectorized sequences, medians, links, FASTA
+# --------------------------------------------------------------------------
+
+def median_int(values: np.ndarray) -> int:
+    """Reference median (Utility.cpp:27-39), truncated to int on store
+    (Contig.median_abundance is an int, Utility.h:28-55)."""
+    n = len(values)
+    if n == 0:
+        return 0
+    v = np.sort(values)
+    if n % 2 == 0:
+        return int((int(v[n // 2 - 1]) + int(v[n // 2])) / 2.0)
+    return int(v[n // 2])
+
+
+def check_solid_cap(key_bits: int, solid_abundance_max: int) -> None:
+    """Spectrum counts saturate at count_cap(key_bits); once the cap is at
+    or below solid_abundance_max, a saturated count can stand for a true
+    count above the -X threshold and the seed filter silently diverges
+    from the reference (contig_assembly.cpp:2082).  Refuse to guess."""
+    cap = sp.count_cap(key_bits)
+    if solid_abundance_max >= cap:
+        raise ValueError(
+            f"count saturation cap {cap} (key_bits={key_bits}) is not above "
+            f"solid_abundance_max={solid_abundance_max}: saturated counts "
+            f"would pass the -X seed filter; lower -X below the cap")
+
+
+@dataclass
+class Unitig:
+    seq: str
+    median_abundance: int
+    # mean k-mer abundance — Minia/gatb-core's RCTC coverage metric
+    # (Simplifications.cpp uses unitig MEAN abundance, not median); carried
+    # in-memory for the in-framework simplification stage.  The FASTA
+    # km:f: field stays the reference's median for byte parity
+    # (contig_assembly.cpp:610-626).
+    mean_abundance: float = 0.0
+
+
+@dataclass
+class ArrayUnitigs:
+    """Final unitig graph as flat numpy arrays (SoA) — no per-unitig Python
+    objects, so assembly and FASTA dump stay O(n) vector ops at the 1e7+
+    unitig scale the reference handles (contig_assembly.cpp:277-629).
+
+    Sequence of unitig i = seq_codes[offsets[i]:offsets[i+1]] (2-bit codes);
+    links use the reference's signed-id convention and CSR layout:
+    after_val[after_ptr[i]:after_ptr[i+1]].
+    """
+
+    k: int
+    seq_codes: np.ndarray  # uint8[total] base codes 0..3
+    offsets: np.ndarray  # int64[n+1]
+    med: np.ndarray  # int64[n] median k-mer abundance
+    after_ptr: np.ndarray  # int64[n+1]
+    after_val: np.ndarray  # int64[] signed ids (+-(id+1))
+    before_ptr: np.ndarray  # int64[n+1]
+    before_val: np.ndarray  # int64[]
+    n_palindromes: int = 0
+    mean: np.ndarray | None = None  # float64[n] mean k-mer abundance
+
+    @property
+    def n(self) -> int:
+        return len(self.med)
+
+    @classmethod
+    def empty(cls, k: int) -> "ArrayUnitigs":
+        z = np.zeros(0, np.int64)
+        p = np.zeros(1, np.int64)
+        return cls(k=k, seq_codes=np.zeros(0, np.uint8), offsets=p, med=z,
+                   after_ptr=p, after_val=z, before_ptr=p, before_val=z,
+                   mean=np.zeros(0, np.float64))
+
+    def seq(self, i: int) -> str:
+        return dna.decode(self.seq_codes[self.offsets[i]:self.offsets[i + 1]])
+
+    def to_graph(self) -> "UnitigGraph":
+        """Materialize the list-of-objects view (simplification stage /
+        tests); O(n) Python-object cost — avoid on huge graphs."""
+        ascii_buf = dna._CODE2ASCII[self.seq_codes].tobytes()
+        g = UnitigGraph(k=self.k, n_palindromes=self.n_palindromes)
+        offs = self.offsets
+        for i in range(self.n):
+            g.unitigs.append(Unitig(
+                seq=ascii_buf[offs[i]:offs[i + 1]].decode(),
+                median_abundance=int(self.med[i]),
+                mean_abundance=(float(self.mean[i]) if self.mean is not None
+                                else float(self.med[i]))))
+            g.after.append(
+                self.after_val[self.after_ptr[i]:self.after_ptr[i + 1]]
+                .tolist())
+            g.before.append(
+                self.before_val[self.before_ptr[i]:self.before_ptr[i + 1]]
+                .tolist())
+        return g
+
+    def write_fasta(self, path: str) -> None:
+        """Reference dump format (contig_assembly.cpp:600-629), written from
+        the arrays in buffered chunks."""
+        ascii_buf = dna._CODE2ASCII[self.seq_codes]
+        offs, k = self.offsets, self.k
+        lens = np.diff(offs)
+        kc = self.med * (lens - k + 1)
+        with open(path, "wb", buffering=1 << 22) as f:
+            for i in range(self.n):
+                parts = [f">{i} LN:i:{lens[i]} KC:i:{kc[i]} km:f:{self.med[i]}"]
+                for t in self.after_val[self.after_ptr[i]:self.after_ptr[i + 1]]:
+                    parts.append(f" L:+:{t - 1}:+" if t > 0
+                                 else f" L:+:{-t - 1}:-")
+                for t in self.before_val[self.before_ptr[i]:self.before_ptr[i + 1]]:
+                    parts.append(f" L:-:{t - 1}:+" if t > 0
+                                 else f" L:-:{-t - 1}:-")
+                f.write("".join(parts).encode())
+                f.write(b"\n")
+                f.write(ascii_buf[offs[i]:offs[i + 1]].tobytes())
+                f.write(b"\n")
+
+
+@dataclass
+class UnitigGraph:
+    k: int
+    unitigs: list[Unitig] = field(default_factory=list)
+    # signed-id convention of the reference (core/unitig_graph.h:25-50):
+    # +.(id+1) = enter unitig id forward; -(id+1) = enter reversed
+    after: list[list[int]] = field(default_factory=list)
+    before: list[list[int]] = field(default_factory=list)
+    n_palindromes: int = 0
+
+    def write_fasta(self, path: str) -> None:
+        """Reference dump format (contig_assembly.cpp:600-629)."""
+        with open(path, "w") as f:
+            for i, u in enumerate(self.unitigs):
+                kc = u.median_abundance * (len(u.seq) - self.k + 1)
+                f.write(f">{i} LN:i:{len(u.seq)} KC:i:{kc} km:f:{u.median_abundance}")
+                for t in self.after[i]:
+                    f.write(f" L:+:{t - 1}:+" if t > 0 else f" L:+:{-t - 1}:-")
+                for t in self.before[i]:
+                    f.write(f" L:-:{t - 1}:+" if t > 0 else f" L:-:{-t - 1}:-")
+                f.write(f"\n{u.seq}\n")
+
+
+def _connected_components(nbr: np.ndarray) -> np.ndarray:
+    """Component labels over a dense neighbor matrix nbr[d, n] (self-index
+    = no neighbor).
+
+    The unitig link graph contains LONG PATHS (phantom hash-collision
+    branches chop one genome walk into thousands of linked unitigs), so
+    naive min-label propagation needs O(diameter) rounds.  Use compiled
+    linear-time BFS (scipy.sparse.csgraph) with a Shiloach-Vishkin-style
+    hook+compress fallback (O(log n) rounds of scatter-min)."""
+    n = nbr.shape[1]
+    if n == 0:
+        return np.zeros(0, np.int64)
+    idx = np.broadcast_to(np.arange(n, dtype=np.int64), nbr.shape)
+    mask = nbr != idx
+    u = idx[mask]
+    v = nbr[mask]
+    try:
+        from scipy.sparse import coo_matrix
+        from scipy.sparse.csgraph import connected_components
+
+        g = coo_matrix((np.ones(len(u), np.int8), (u, v)), shape=(n, n))
+        _, labels = connected_components(g, directed=False)
+        # canonicalize: component id -> minimum member index (deterministic
+        # regardless of scipy's internal ordering)
+        rep = np.full(labels.max() + 1 if len(labels) else 1, n, np.int64)
+        np.minimum.at(rep, labels, np.arange(n, dtype=np.int64))
+        return rep[labels]
+    except ImportError:  # pragma: no cover
+        parent = np.arange(n, dtype=np.int64)
+        for _ in range(2 * max(int(np.ceil(np.log2(n + 1))), 1) + 4):
+            # hook: roots adopt the minimum parent seen across their edges
+            pu, pv = parent[u], parent[v]
+            np.minimum.at(parent, pu, pv)
+            np.minimum.at(parent, pv, pu)
+            # full path compression
+            while True:
+                pp = parent[parent]
+                if np.array_equal(pp, parent):
+                    break
+                parent = pp
+            if np.array_equal(parent[u], parent[v]):
+                break
+        return parent
+
+
+def assemble_unitigs_arrays(
+    spec: sp.Spectrum,
+    batches: Iterable[fastq.Batch],
+    params: cfg.ContigerParams,
+    key_bits: int,
+) -> ArrayUnitigs:
+    """Full Contiger stage -> ArrayUnitigs (vectorized host assembly).
+
+    Device stages A-C as documented at module top, on the spectrum's
+    device; the host pass then materializes sequences/medians/links with
+    numpy segment ops and applies the solid-abundance seed rule: a
+    connected component is emitted iff it contains a solid seed k-mer.
+    """
+    k = params.k
+    check_solid_cap(key_bits, params.solid_kmer_abundance_max)
+    with profiling.phase("contiger:collect nodes"):
+        hi, lo, seed = collect_nodes(spec, batches, k, key_bits,
+                                     params.kmer_abundance_min)
+    N = hi.shape[0]
+    log(f"[Contiger] {N} distinct solid k-mers")
+    if N == 0:
+        return ArrayUnitigs.empty(k)
+
+    # phantom hash-collision nodes (reference candidate semantics; see
+    # phantom_candidates)
+    with profiling.phase("contiger:phantom closure"):
+        hi, lo, _ = close_over_phantoms(
+            spec, hi, lo, k, key_bits, params.kmer_abundance_min)
+    N = hi.shape[0]
+    is_seed = None
+    # pad to the JAX package's power-of-two extent (sentinel nodes are
+    # masked inside); the extent fixes the oriented node numbering
+    Np = 1 << max(int(np.ceil(np.log2(max(N, 1024)))), 10)
+    hi_pad = torch.full((Np,), SENT, dtype=torch.int64, device=hi.device)
+    lo_pad = torch.full((Np,), SENT, dtype=torch.int64, device=hi.device)
+    hi_pad[:N] = hi
+    lo_pad[:N] = lo
+    if seed is not None:
+        # phantoms (appended after the collected nodes) are never seeds
+        is_seed = np.zeros(Np, bool)
+        is_seed[:len(seed)] = seed.cpu().numpy() != 0
+    with profiling.phase("contiger:probe graph"):
+        nsucc, chain_next, node_counts = build_oriented_graph(
+            spec, hi_pad, lo_pad, k, key_bits, params.kmer_abundance_min)
+    real = np.zeros(Np, bool)
+    real[:N] = True
+    return finalize_unitigs(hi_pad, lo_pad, real, node_counts, chain_next,
+                            params, is_seed=is_seed)
+
+
+def finalize_unitigs(
+    hi: torch.Tensor,
+    lo: torch.Tensor,
+    real: np.ndarray,
+    node_counts: torch.Tensor,
+    chain_next: torch.Tensor,
+    params: cfg.ContigerParams,
+    is_seed: np.ndarray | None = None,
+) -> ArrayUnitigs:
+    """Contraction + vectorized host assembly.
+
+    hi/lo: padded node k-mers [Np] (sentinel holes allowed anywhere);
+    real: bool[Np] live-node mask; chain_next: int32[2*Np] oriented
+    successor indices (-1 = none).  is_seed: bool[Np], True where the node
+    k-mer is some read's middle k-mer; None = seed metadata unavailable,
+    fall back to the component-contains-solid rule.  The device arrays
+    cross to the host here, k-mer words as uint64 (bits.to_u64_np): the
+    assembly orders them with numpy's unsigned comparisons.
+    """
+    k = params.k
+    with profiling.phase("contiger:contract"):
+        head, dist, is_tail = contract_paths_host(chain_next)
+        hi_np = bits.to_u64_np(hi)
+        lo_np = bits.to_u64_np(lo)
+        rhi_np, rlo_np = kpn.revcomp_packed(hi_np, lo_np, k)
+        keep = _path_summary_np(head, is_tail, hi_np, lo_np,
+                                rhi_np, rlo_np)
+    with profiling.phase("contiger:host assembly"):
+        return _finalize_host(hi_np, lo_np, rhi_np, rlo_np, real,
+                              node_counts.cpu().numpy(), head, dist, keep,
+                              params, is_seed)
+
+
+def _path_summary_np(head, is_tail, hi, lo, rhi, rlo):
+    """Numpy mirror-dedup keep rule (see path_summary): keep the oriented
+    path whose head k-mer is lexicographically <= its mirror's head."""
+    M = len(head)
+    idx = np.arange(M, dtype=np.int64)
+    tail_of = np.zeros(M, np.int64)
+    m = np.asarray(is_tail, bool)
+    tail_of[head[m]] = idx[m]
+    is_head = head == idx
+
+    def obits(a):
+        i, o = a >> 1, a & 1
+        return (np.where(o == 0, hi[i], rhi[i]),
+                np.where(o == 0, lo[i], rlo[i]))
+
+    h_hi, h_lo = obits(idx)
+    mirror = tail_of ^ 1
+    m_hi, m_lo = obits(mirror)
+    return is_head & ((h_hi < m_hi) | ((h_hi == m_hi) & (h_lo <= m_lo)))
+
+
+def _finalize_host(hi, lo, rhi, rlo, real, node_counts,
+                   head, dist, keep, params, is_seed=None):
+    k = params.k
+    Np = hi.shape[0]
+
+    # ---- members of kept oriented paths, sorted by (head, dist) ----------
+    a = np.arange(2 * Np, dtype=np.int64)
+    keep_np = np.asarray(keep)
+    head_np = np.asarray(head)
+    member = keep_np[head_np]
+    member &= real[a >> 1]  # drop sentinel padding nodes
+    heads = head_np[member].astype(np.int64)
+    dists = np.asarray(dist)[member]
+    ai = a[member]
+    node_i = ai >> 1
+    orient = ai & 1
+    if len(heads) == 0:
+        return ArrayUnitigs.empty(k)
+
+    order = np.lexsort((dists, heads))
+    heads, node_i, orient, ai = (
+        heads[order], node_i[order], orient[order], ai[order])
+
+    counts_np = np.asarray(node_counts).astype(np.int64)
+    hi_np, lo_np = np.asarray(hi), np.asarray(lo)
+    rhi_np, rlo_np = np.asarray(rhi), np.asarray(rlo)
+
+    # oriented packed kmers + per-member data
+    ohi = np.where(orient == 0, hi_np[node_i], rhi_np[node_i])
+    olo = np.where(orient == 0, lo_np[node_i], rlo_np[node_i])
+    lastb = kpn.last_base(ohi, olo, k)
+    counts_mem = counts_np[node_i]
+
+    starts = np.flatnonzero(np.r_[True, heads[1:] != heads[:-1]]).astype(np.int64)
+    lens = np.diff(np.r_[starts, len(heads)])
+    P = len(starts)
+    tail_pos = starts + lens - 1
+
+    # ---- mirror dedup on oriented indices --------------------------------
+    # every unitig appears as two mirror paths; the device keep-rule (head
+    # kmer <= mirror head kmer) leaves both only when those kmers are
+    # EQUAL, which happens exactly when the unitig is palindromic-headed.
+    # The unordered pair {head, flip(tail)} identifies a mirror pair
+    # exactly, so dedup on it is collision-free.
+    head_idx = heads[starts]
+    mirror_idx = ai[tail_pos] ^ 1
+    pk_lo = np.minimum(head_idx, mirror_idx).astype(np.uint64)
+    pk_hi = np.maximum(head_idx, mirror_idx).astype(np.uint64)
+    comb = (pk_lo << np.uint64(32)) | pk_hi
+    _, first_occ = np.unique(comb, return_index=True)
+    sel = np.zeros(P, bool)
+    sel[first_occ] = True
+
+    # ---- per-path medians (reference median, Utility.cpp:27-39) ----------
+    seg_id = np.repeat(np.arange(P, dtype=np.int64), lens)
+    ordm = np.lexsort((counts_mem, seg_id))
+    sc = counts_mem[ordm]
+    mid = starts + lens // 2
+    med = np.where(lens % 2 == 1, sc[mid],
+                   (sc[np.maximum(mid - 1, 0)] + sc[mid]) // 2)
+    # mean k-mer abundance (gatb RCTC coverage; see Unitig.mean_abundance)
+    meanf = np.add.reduceat(counts_mem, starts).astype(np.float64) / lens
+
+    # ---- solid seed flag per path (contig_assembly.cpp:2082) -------------
+    # the reference only STARTS traversal from read-MIDDLE k-mers whose
+    # count lies in [-x, -X] (contig_assembly.cpp:2068-2082); components
+    # unreachable from such a seed are never discovered.  When middle-kmer
+    # metadata is unavailable (hand-built batches), fall back to "any solid
+    # k-mer seeds" — a superset.
+    smin = params.solid_kmer_abundance_min
+    smax = params.solid_kmer_abundance_max
+    seed_mem = (counts_mem >= smin) & (counts_mem <= smax)
+    if is_seed is not None:
+        seed_mem = seed_mem & np.asarray(is_seed)[node_i]
+    path_seed = np.add.reduceat(seed_mem.astype(np.int64), starts) > 0
+
+    # ---- select deduped paths --------------------------------------------
+    pids = np.flatnonzero(sel)
+    P2 = len(pids)
+    fhi, flo = ohi[starts[pids]], olo[starts[pids]]  # first kmer
+    thi, tlo = ohi[tail_pos[pids]], olo[tail_pos[pids]]  # last kmer
+    lens2 = lens[pids]
+    med2 = med[pids]
+    mean2 = meanf[pids]
+    seed2 = path_seed[pids]
+    starts2 = starts[pids]
+
+    # ---- link table: first kmer -> +(id+1), RC(last kmer) -> -(id+1) -----
+    # (track_kmer_worker, contig_assembly.cpp:956-1010).  Insertion order
+    # mirrors the dict the previous implementation used: for each id, RC
+    # then first; the LAST write wins on key collisions (palindromic
+    # unitigs collapse to the + entry).
+    rthi, rtlo = kpn.revcomp_packed(thi, tlo, k)  # == mirror head kmer
+    tab_hi = np.empty(2 * P2, np.uint64)
+    tab_lo = np.empty(2 * P2, np.uint64)
+    tab_val = np.empty(2 * P2, np.int64)
+    ids1 = np.arange(P2, dtype=np.int64) + 1
+    tab_hi[0::2], tab_lo[0::2], tab_val[0::2] = rthi, rtlo, -ids1
+    tab_hi[1::2], tab_lo[1::2], tab_val[1::2] = fhi, flo, ids1
+    ordt = np.lexsort((tab_lo, tab_hi))  # stable: position breaks ties
+    th, tl, tv = tab_hi[ordt], tab_lo[ordt], tab_val[ordt]
+    last_of_run = np.empty(2 * P2, bool)
+    last_of_run[-1] = True
+    last_of_run[:-1] = (th[1:] != th[:-1]) | (tl[1:] != tl[:-1])
+    key_hi, key_lo, key_val = (
+        th[last_of_run], tl[last_of_run], tv[last_of_run])
+
+    # ---- link queries (build_graph_worker, contig_assembly.cpp:1012-1084)
+    # after: (last k-1 bases) + X for X in ACGT;
+    # before: RC(first k-1 bases) + X for X in TGCA (shift_in_base on the
+    # RC'd first kmer reproduces RC(seq[:k-1]) + X exactly).
+    rfhi, rflo = kpn.revcomp_packed(fhi, flo, k)
+    qa_hi = np.empty((4, P2), np.uint64)
+    qa_lo = np.empty((4, P2), np.uint64)
+    qb_hi = np.empty((4, P2), np.uint64)
+    qb_lo = np.empty((4, P2), np.uint64)
+    for X in range(4):
+        qa_hi[X], qa_lo[X] = kpn.shift_in_base(thi, tlo, X, k)
+    for xi, X in enumerate((3, 2, 1, 0)):
+        qb_hi[xi], qb_lo[xi] = kpn.shift_in_base(rfhi, rflo, X, k)
+    ja = kpn.join(key_hi, key_lo, qa_hi.reshape(-1), qa_lo.reshape(-1))
+    jb = kpn.join(key_hi, key_lo, qb_hi.reshape(-1), qb_lo.reshape(-1))
+    av4 = np.where(ja >= 0, key_val[np.maximum(ja, 0)], 0).reshape(4, P2)
+    bv4 = np.where(jb >= 0, key_val[np.maximum(jb, 0)], 0).reshape(4, P2)
+
+    # ---- sibling discovery edges (connectivity only, never dumped) -------
+    # the reference SPAWNS before-candidates that share a tail junction's
+    # (k-1)-suffix (contig_assembly.cpp:3140-3165): a unitig discovered
+    # that way belongs to the discovering component even when no k-1
+    # overlap link exists (e.g. an isolated phantom sibling).  Probe the 4
+    # suffix-siblings of both mirror tails.
+    qs_hi = np.empty((8, P2), np.uint64)
+    qs_lo = np.empty((8, P2), np.uint64)
+    for X in range(4):
+        qs_hi[X], qs_lo[X] = kpn.replace_first_base(thi, tlo, X, k)
+        qs_hi[4 + X], qs_lo[4 + X] = kpn.replace_first_base(
+            rfhi, rflo, X, k)
+    jsib = kpn.join(key_hi, key_lo, qs_hi.reshape(-1), qs_lo.reshape(-1))
+    sv8 = np.where(jsib >= 0, key_val[np.maximum(jsib, 0)], 0).reshape(8, P2)
+
+    # ---- component seed filter (-x/-X semantics) --------------------------
+    self_idx = np.broadcast_to(np.arange(P2, dtype=np.int64), (4, P2))
+    self_idx8 = np.broadcast_to(np.arange(P2, dtype=np.int64), (8, P2))
+    nbr = np.vstack([
+        np.where(av4 != 0, np.abs(av4) - 1, self_idx),
+        np.where(bv4 != 0, np.abs(bv4) - 1, self_idx),
+        np.where(sv8 != 0, np.abs(sv8) - 1, self_idx8),
+    ])
+    lab = _connected_components(nbr)
+    comp_seeded = np.zeros(P2, bool)
+    if P2:
+        comp_seeded[np.unique(lab[seed2])] = True
+    keep_u = comp_seeded[lab] if P2 else np.zeros(0, bool)
+    n_dropped = P2 - int(keep_u.sum())
+    if n_dropped:
+        log(f"[Contiger] dropped {n_dropped} unitigs in components with no "
+            f"solid seed (count in [{smin}, {smax}])")
+
+    fsel = np.flatnonzero(keep_u)
+    F = len(fsel)
+    if F == 0:
+        return ArrayUnitigs.empty(k)
+    new_id = np.full(P2, -1, np.int64)
+    new_id[fsel] = np.arange(F)
+
+    def remap_links(v4):
+        vals = v4[:, fsel].T  # (F, 4): per-unitig link lists in X order
+        mask = vals != 0
+        flat = vals[mask]
+        flat = np.sign(flat) * (new_id[np.abs(flat) - 1] + 1)
+        ptr = np.r_[0, np.cumsum(mask.sum(axis=1))]
+        return ptr.astype(np.int64), flat.astype(np.int64)
+
+    after_ptr, after_val = remap_links(av4)
+    before_ptr, before_val = remap_links(bv4)
+
+    # ---- sequence materialization ----------------------------------------
+    lens_f = lens2[fsel]
+    starts_f = starts2[fsel]
+    out_lens = lens_f + k - 1
+    offs = np.r_[0, np.cumsum(out_lens)]
+    seq_codes = np.empty(offs[-1], np.uint8)
+    fhi_f, flo_f = fhi[fsel], flo[fsel]
+    for j in range(k):
+        seq_codes[offs[:-1] + j] = kpn.base_at(fhi_f, flo_f, j, k)
+    m_total = int(lens_f.sum())
+    segf = np.repeat(np.arange(F, dtype=np.int64), lens_f)
+    within = np.arange(m_total, dtype=np.int64) - np.repeat(
+        np.r_[0, np.cumsum(lens_f)[:-1]], lens_f)
+    midx = starts_f[segf] + within
+    nz = within >= 1
+    pos = offs[segf] + (k - 1) + within
+    seq_codes[pos[nz]] = lastb[midx[nz]]
+
+    # ---- palindromes: head kmer == mirror head kmer <=> seq == RC(seq) ----
+    pal = (fhi_f == rthi[fsel]) & (flo_f == rtlo[fsel])
+
+    return ArrayUnitigs(
+        k=k, seq_codes=seq_codes, offsets=offs.astype(np.int64),
+        med=med2[fsel].astype(np.int64),
+        after_ptr=after_ptr, after_val=after_val,
+        before_ptr=before_ptr, before_val=before_val,
+        n_palindromes=int(pal.sum()),
+        mean=mean2[fsel])
+
+
+def assemble_unitigs(
+    spec: sp.Spectrum,
+    batches: Iterable[fastq.Batch],
+    params: cfg.ContigerParams,
+    key_bits: int,
+) -> UnitigGraph:
+    """Object-graph convenience wrapper over assemble_unitigs_arrays."""
+    return assemble_unitigs_arrays(spec, batches, params, key_bits).to_graph()

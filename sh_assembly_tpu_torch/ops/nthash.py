@@ -87,6 +87,18 @@ def windowed_canonical(codes: torch.Tensor, lengths: torch.Tensor, k: int):
     return keys, valid
 
 
+def seed_table(device="cpu") -> torch.Tensor:
+    """The 6-entry ntHash seed table (A, C, G, T, N, pad) as int64."""
+    return torch.from_numpy(
+        np.asarray(_host.SEEDS, np.uint64).view(np.int64).copy()).to(device)
+
+
+def cseed_table(device="cpu") -> torch.Tensor:
+    """The complement seed table, like seed_table."""
+    return torch.from_numpy(
+        np.asarray(_host.CSEEDS, np.uint64).view(np.int64).copy()).to(device)
+
+
 def mask_keys(keys: torch.Tensor, key_bits: int) -> torch.Tensor:
     """key mod 2^key_bits (power-of-two hash range); key_bits <= 56 here,
     so the mask is a positive int64 and the result is non-negative."""

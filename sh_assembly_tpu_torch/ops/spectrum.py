@@ -33,7 +33,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from . import bits, merge_cuda
+from . import bits, join_cuda, merge_cuda
 
 
 @dataclasses.dataclass
@@ -171,6 +171,64 @@ def sweep(spec: Spectrum, key_bits: int) -> Spectrum:
         raise ValueError("sweep needs a merged store (n_buf == 0)")
     empty = spec.store[:0]
     return _fold(spec, empty, key_bits, drop_singletons=True)
+
+
+# ---------------------------------------------------------------------------
+# Queries (require a merged store)
+
+
+def query(spec: Spectrum, keys: torch.Tensor, key_bits: int) -> torch.Tensor:
+    """Batched count lookup by binary search over the whole packed store,
+    as the JAX package's ``query`` (for tests and tools).  A query key
+    compares as ``key << KSHIFT``: real entries carry a count >= 1 in their
+    payload, so the left insertion point lands on the matching key."""
+    kshift = payload_bits(key_bits)
+    q = keys.reshape(-1)
+    pos = torch.searchsorted(bits.flip(spec.store), bits.flip(q << kshift))
+    at = spec.store[pos.clamp_(max=spec.capacity - 1)]
+    found = (bits.srl(at, kshift) == q) & (q != bits.SENTINEL) & \
+        (at != bits.SENTINEL)
+    counts = at & ((1 << cbits(key_bits)) - 1)
+    return torch.where(found, counts, 0).to(torch.int32)
+
+
+def query_join(spec: Spectrum, keys: torch.Tensor,
+               key_bits: int) -> torch.Tensor:
+    """Counts for keys in any order (-1 keys answer 0): K2's plain version.
+
+    The two budget checks only mirror the JAX ``query_join``'s API, so
+    that both raise on the same batches: the search here packs no run id
+    that could overflow.  ``contiger.collect_nodes`` repeats the budgets
+    in its own pending sizing and does not call this function.
+    """
+    keys = keys.reshape(-1)
+    Nq = keys.shape[0]
+    p = payload_bits(key_bits)
+    if Nq >= (1 << (p - 1)):
+        raise ValueError("query batch too large for payload bits")
+    if (spec.capacity + Nq).bit_length() + (p - 1) > 63:
+        raise ValueError("run-id would overflow the scan packing")
+    return join_cuda.count_join_plain(spec.store, spec.n_main, keys,
+                                      key_bits)
+
+
+def query_join_sorted(spec: Spectrum, keys: torch.Tensor,
+                      key_bits: int) -> torch.Tensor:
+    """Counts for ASCENDING keys (-1 tail allowed, answering 0): kernel K2
+    on CUDA tensors, its plain version on CPU tensors."""
+    return join_cuda.count_join(spec.store, spec.n_main, keys.reshape(-1),
+                                key_bits)
+
+
+def query_join_auto(spec: Spectrum, keys: torch.Tensor,
+                    key_bits: int) -> torch.Tensor:
+    """Counts for keys in any order through K2: sort the keys, join, and
+    scatter the answers back to query order."""
+    keys = keys.reshape(-1)
+    order = torch.sort(bits.flip(keys)).indices
+    out = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
+    out[order] = query_join_sorted(spec, keys[order], key_bits)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,7 @@
-"""Kernel K1 (csrc/merge_dedup.cu) against its plain PyTorch twin on the
-GPU, bitwise, and the counting stage on CUDA against the CPU path.
+"""Kernels K1 (csrc/merge_dedup.cu), K2 (csrc/count_join.cu) and K3
+(csrc/merge128.cu) against their plain PyTorch versions on the GPU,
+bitwise, and the counting stage and the Contiger on CUDA against the CPU
+path.
 
 Marked ``cuda``: without a GPU every test here skips.  On a machine with
 one (no JAX needed; the repository's conftest imports JAX, so skip it):
@@ -15,7 +17,8 @@ import chip_smoke
 from sh_assembly_tpu_torch import config as cfg
 from sh_assembly_tpu_torch.io import fastq
 from sh_assembly_tpu_torch.models import counter
-from sh_assembly_tpu_torch.ops import merge_cuda
+from sh_assembly_tpu_torch.models import contiger
+from sh_assembly_tpu_torch.ops import join_cuda, merge128_cuda, merge_cuda
 from sh_assembly_tpu_torch.ops import spectrum as sp
 
 pytestmark = pytest.mark.cuda
@@ -72,3 +75,75 @@ def test_build_spectrum_cuda_matches_cpu(gpu):
         assert getattr(sc, f) == getattr(sg, f), f
     for a, b in zip(hc, hg):
         np.testing.assert_array_equal(a, b)
+
+
+def test_k2_matches_plain(gpu):
+    n = 0
+    for name, store, n_main, q, kb in chip_smoke.k2_cases(gpu):
+        before = join_cuda.LAUNCHES
+        got = join_cuda.count_join(store, n_main, q, kb)
+        assert join_cuda.LAUNCHES == before + 1
+        want = join_cuda.count_join_plain(store, n_main, q, kb)
+        assert torch.equal(got, want), name
+        n += 1
+    assert n >= 10
+
+
+def test_k3_matches_plain(gpu):
+    n = 0
+    for name, *args in chip_smoke.k3_cases(gpu):
+        before = merge128_cuda.LAUNCHES
+        got = merge128_cuda.merge128(*args)
+        assert merge128_cuda.LAUNCHES == before + 1
+        want = merge128_cuda.merge128_plain(*args)
+        assert int(got[3]) == int(want[3]), name
+        for a, b in zip(got[:3], want[:3]):
+            assert torch.equal(a, b), name
+        n += 1
+    assert n >= 10
+
+
+@pytest.mark.parametrize("k", [21, 47, 63])
+def test_contiger_cuda_matches_cpu(gpu, k):
+    rng = np.random.default_rng(k)
+    genome = rng.integers(0, 4, size=4000).astype(np.uint8)
+    reads = []
+    # 130 bp reads: the middle k-mer (the traversal seed) fits at k = 63
+    for _ in range(700):
+        s = int(rng.integers(0, len(genome) - 130))
+        r = genome[s:s + 130].copy()
+        if rng.random() < 0.5:
+            r = (3 - r)[::-1].copy()
+        err = rng.random(130) < 0.01
+        r[err] = (r[err] + 1) % 4
+        reads.append(r)
+    key_bits = 22  # dense enough for phantom nodes
+    sizing = cfg.CounterSizing(
+        k=k, qb=14, hb=key_bits, num_true_kmers=0, num_false_kmers=0,
+        n_true_kmers=1, num_deNoise=0, ndistinct_for_deNoise=1 << 62,
+        end_deNoise=False, fr=0.0)
+    bc = cfg.BatchConfig(reads_per_batch=64, max_read_len=136)
+    params = cfg.ContigerParams(k=k)
+
+    def stream():
+        b = fastq.Batcher(k, 64, 136)
+        return [x for r in reads for x in b.add_read(r)] + list(b.flush())
+
+    out = {}
+    for dev in ("cpu", gpu):
+        spec, _ = counter.build_spectrum(
+            iter(stream()), sizing, capacity=1 << 16, buf_capacity=1 << 14,
+            batch_cfg=bc, device=dev)
+        before = (join_cuda.LAUNCHES, merge128_cuda.LAUNCHES)
+        au = contiger.assemble_unitigs_arrays(spec, iter(stream()), params,
+                                              key_bits)
+        launched = (join_cuda.LAUNCHES - before[0],
+                    merge128_cuda.LAUNCHES - before[1])
+        out[str(dev)] = (au, launched)
+    (ac, lc), (ag, lg) = out["cpu"], out[str(gpu)]
+    assert lc == (0, 0)
+    assert lg[0] > 0 and lg[1] > 0
+    assert ac.n == ag.n > 0
+    for f in ("seq_codes", "offsets", "med", "after_ptr", "after_val",
+              "before_ptr", "before_val"):
+        np.testing.assert_array_equal(getattr(ac, f), getattr(ag, f), f)
