@@ -8,8 +8,8 @@ exits non-zero without printing a result:
 
   0. device: nvidia-smi name and power limit, torch/CUDA versions; no GPU
      is an error.
-  1. build: compiles kernels K1, K2 and K3 (csrc/merge_dedup.cu,
-     count_join.cu, merge128.cu) from the checkout, one nvcc each, in
+  1. build: compiles kernels K1-K4 (csrc/merge_dedup.cu, count_join.cu,
+     merge128.cu, block_sort.cu) from the checkout, one nvcc each, in
      parallel.
   2. K1 against its plain PyTorch twin on the card, bitwise: the merge
      cases of the JAX package's kernel tests, the maximum key, counts at
@@ -43,9 +43,31 @@ exits non-zero without printing a result:
      of the genome, every kernel must launch, and the native contraction
      library must load.
 
+  8. K4 (window sort) against its plain PyTorch version on the card,
+     bitwise: windows of 2^7 to 2^17 values, several each, with random
+     values over the whole u32 range, all equal, sorted, reversed and only
+     0 and 0xFFFFFFFF; then the profiling entry point
+     (profile.blocksort.main) at its real shape, 2^27 values in windows of
+     2^17, timed against the plain torch.sort rows, and the buffer-sort
+     yardsticks of profile.sort.main (variants A-H at 2^27 keys).
+  9. the library surface off the main path on the card: union, intersect,
+     inner_product, magnitude, query_set_traveled and query_is_traveled on
+     two spectra of 50 M live keys each in 2^27 slots; a cut of the same
+     keys through the CPU and the card, which must agree bitwise
+     (magnitude to 1e-9 relative: its float64 sum is taken in another
+     order); inner_product and intersect must launch K2.  Then the tools
+     on phase 6's files: cli.minia on the CUDA run's unitigs.fa, whose
+     contigs cli.compare_contigs must find equal to the pipeline's as a
+     set of sequences, the CPU and CUDA contigs equal, and cli.cqf_dump
+     --meta-only printing the .ser header.
+
 The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels with their launch counts in phase 7 and their times.  Work
-files go to
+the kernels: launches on the path that runs each (phase 7 for K1-K3,
+phase 8's profiling entry point for K4, which the main path never
+launches), times, and each kernel's bound, the least time the card could
+take, computed from this run's shapes and results: the larger of the
+bytes moved (each input read once, the live result written once) over
+HBM_BYTES_PER_S and the key comparisons over OPS_PER_S.  Work files go to
 build/chip_smoke/ (ignored by git) and are removed at the end.
 """
 
@@ -64,6 +86,22 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
+HBM_BYTES_PER_S = 3.35e12  # published peak of one H100 SXM
+OPS_PER_S = 67e12  # its published 32-bit rate outside the tensor cores
+
+
+def bound_ms(n_bytes: int) -> float:
+    """The least time the card could take to move n_bytes."""
+    return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def bound(n_bytes: int, n_ops: int) -> dict:
+    """A kernel's bound: the larger of its bytes over the memory rate and
+    its operations (here: key comparisons) over the 32-bit rate."""
+    by_bytes, by_ops = bound_ms(n_bytes), n_ops / OPS_PER_S * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
 
 # ---------------------------------------------------------------------------
 # Inputs (numpy seeds)
@@ -400,6 +438,83 @@ def big_case(device, n_live=100_000_000, n_buf=1 << 27, key_bits=37,
     return store, sp.sort_pack_buf(buf, key_bits), n, key_bits, capacity
 
 
+def k4_cases(device):
+    """(name, x, W) tuples for K4: int32 tensors carrying u32 patterns,
+    made from numpy seeds.  The window counts leave ragged last chunks
+    where the window is below the kernel's shared-memory chunk (2^13)."""
+    import torch
+
+    for log2_w, g in ((7, 5), (7, 200), (10, 7), (10, 19), (13, 1), (13, 5),
+                      (15, 3), (17, 2)):
+        W = 1 << log2_w
+        rng = np.random.default_rng(log2_w * 1000 + g)
+        x = rng.integers(0, 1 << 32, size=g * W,
+                         dtype=np.uint64).astype(np.uint32)
+        fills = {"random": x, "equal": np.full_like(x, 0x9E3779B9),
+                 "sorted": np.sort(x), "reversed": np.sort(x)[::-1].copy(),
+                 "extremes": np.where(x & 1, 0xFFFFFFFF, 0).astype(np.uint32)}
+        for fill, v in fills.items():
+            yield (f"w2^{log2_w}_g{g}_{fill}",
+                   torch.from_numpy(v.view(np.int32)).to(device), W)
+
+
+def _merged_spectrum(store, n, key_bits):
+    """A merged Spectrum around a packed store with n live entries."""
+    import torch
+
+    from sh_assembly_tpu_torch.ops import spectrum as sp
+
+    cmask = (1 << sp.cbits(key_bits)) - 1
+    return sp.Spectrum(
+        store=store, buf=torch.full((1 << 10,), -1, dtype=torch.int64,
+                                    device=store.device),
+        n_main=n, n_buf=0, ndistinct=n, nelts=(store[:n] & cmask).sum())
+
+
+def setops_pair(device, n_live, capacity, key_bits=37, seed=13):
+    """Two merged spectra generated on the device: n_live distinct keys
+    each, about half of b's keys stored in a too, a few counts at the cap,
+    half of the entries traveled."""
+    import torch
+
+    from sh_assembly_tpu_torch.ops import spectrum as sp
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    kshift, cb = sp.payload_bits(key_bits), sp.cbits(key_bits)
+
+    def rand_keys(n):
+        return torch.randint(0, 1 << key_bits, (n,), generator=g,
+                             device=device)
+
+    def spectrum(keys):
+        n = keys.numel()
+        counts = torch.randint(1, 200, (n,), generator=g, device=device)
+        counts[::1000003] = sp.count_cap(key_bits)  # rare: sums stay in int64
+        trav = torch.randint(0, 2, (n,), generator=g, device=device)
+        store = torch.full((capacity,), -1, dtype=torch.int64, device=device)
+        store[:n] = (keys << kshift) | (trav << cb) | counts
+        return _merged_spectrum(store, n, key_bits)
+
+    ka = torch.unique(rand_keys(n_live + n_live // 50))[:n_live]
+    pick = torch.randint(0, ka.numel(), (n_live // 2,), generator=g,
+                         device=device)
+    kb = torch.unique(torch.cat([ka[pick], rand_keys(n_live)]))
+    # thin b to n_live keys without losing its spread over the key range
+    kb = kb[torch.randperm(kb.numel(), generator=g,
+                           device=device)[:n_live].sort().values]
+    return spectrum(ka), spectrum(kb)
+
+
+def spectrum_cut(spec, n, capacity, key_bits, device):
+    """The first n live entries of spec as a merged spectrum of its own on
+    ``device``."""
+    import torch
+
+    store = torch.full((capacity,), -1, dtype=torch.int64, device=device)
+    store[:n] = spec.store[:n].to(device)
+    return _merged_spectrum(store, n, key_bits)
+
+
 # ---------------------------------------------------------------------------
 # Phases
 
@@ -424,35 +539,27 @@ def phase0_device():
 def phase1_build():
     from concurrent.futures import ThreadPoolExecutor
 
-    from sh_assembly_tpu_torch.ops import _build, join_cuda, merge128_cuda, \
-        merge_cuda
+    from sh_assembly_tpu_torch.ops import _build, blocksort_cuda, join_cuda, \
+        merge128_cuda, merge_cuda
 
     print("== phase 1: build", flush=True)
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)  # build from source
     t0 = time.time()
     # one nvcc per source, all started together
-    with ThreadPoolExecutor(3) as ex:
-        for f in [ex.submit(m.build)
-                  for m in (merge_cuda, join_cuda, merge128_cuda)]:
+    with ThreadPoolExecutor(4) as ex:
+        for f in [ex.submit(m.build) for m in (merge_cuda, join_cuda,
+                                               merge128_cuda, blocksort_cuda)]:
             f.result()
-    for name in ("merge_dedup", "count_join", "merge128"):
+    for name in ("merge_dedup", "count_join", "merge128", "block_sort"):
         print(f"built {name} (sm_90a) -> {_build.lib_path(name)}")
     print(f"  all kernels built in {time.time() - t0:.2f} s")
 
 
 def _time_ms(fn, reps: int) -> float:
-    import torch
+    """Median over reps calls of fn's time between CUDA events."""
+    from sh_assembly_tpu_torch.utils.profiling import median_ms
 
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    return median_ms(fn, reps, "cuda")
 
 
 def _compare(name, kern, plain) -> int:
@@ -498,23 +605,28 @@ def phase2_k1(device):
         ms = _time_ms(lambda: mc.merge_dedup_cuda(store, b, n, kb, drop, C), 7)
         plain_ms = _time_ms(
             lambda: mc.merge_dedup_plain(store, b, n, kb, drop, C), 3)
-        moved = (n + b.numel() + C) * 8  # read main + buffer, write store
-        timing[label] = (ms, plain_ms)
+        # the live store and the buffer read and the live result written:
+        # a design may skip the sentinel tail, so the bound leaves it out;
+        # one key comparison for each word read
+        moved = (n + b.numel() + n_live) * 8
+        whole = (n + b.numel() + C) * 8  # what K1 moves: the tail as well
+        timing[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                             **bound(moved, n + b.numel()))
         print(f"  real-size {label}: n_live={n_live} n_dropped={n_drop} "
               f"identical; K1 median {ms:.3f} ms, plain twin median "
-              f"{plain_ms:.3f} ms; K1 moves >= {moved / 2**30:.2f} GiB "
-              f"-> {moved / ms / 1e6:.1f} GB/s")
+              f"{plain_ms:.3f} ms; K1 moves >= {whole / 2**30:.2f} GiB "
+              f"-> {whole / ms / 1e6:.1f} GB/s; bound "
+              f"{timing[label]['bound_ms']:.3f} ms for the {moved / 1e9:.2f} "
+              f"GB of the live result ({bound_ms(whole):.3f} ms if all "
+              f"{C} slots count)")
     del store, buf
     torch.cuda.empty_cache()
     return err, timing
 
 
-def _run_cli(argv, cli: str = "cqf_denoise"):
-    """Run one of the port's CLIs in-process, echoing and capturing its
-    log; for cqf_denoise, also parse its final counters."""
-    import importlib
-
-    main = importlib.import_module(f"sh_assembly_tpu_torch.cli.{cli}").main
+def _run_main(main, argv):
+    """Run an entry point's main(argv) in-process, echoing and capturing
+    what it writes to stderr.  Returns (exit code, log text, seconds)."""
 
     class Tee(io.TextIOBase):
         def __init__(self):
@@ -528,14 +640,23 @@ def _run_cli(argv, cli: str = "cqf_denoise"):
     t0 = time.time()
     with contextlib.redirect_stderr(tee):
         rc = main(argv)
-    wall = time.time() - t0
+    return rc, tee.buf.getvalue(), time.time() - t0
+
+
+def _run_cli(argv, cli: str = "cqf_denoise"):
+    """Run one of the port's CLIs in-process (it must exit 0); for
+    cqf_denoise, also parse its final counters."""
+    import importlib
+
+    rc, logtxt, wall = _run_main(importlib.import_module(
+        f"sh_assembly_tpu_torch.cli.{cli}").main, argv)
     if rc != 0:
         raise RuntimeError(f"{cli} exited {rc}")
     stats = {}
-    for line in tee.buf.getvalue().splitlines():
+    for line in logtxt.splitlines():
         if "kmers=" in line and "merges=" in line:
             stats = dict(kv.split("=") for kv in line.split("] ", 1)[1].split())
-    return {k: int(v) for k, v in stats.items()}, tee.buf.getvalue(), wall
+    return {k: int(v) for k, v in stats.items()}, logtxt, wall
 
 
 def _ser_meta(path):
@@ -664,8 +785,10 @@ def phase5_k2_k3(device):
     main path's real shapes.  Returns (k2 err, k3 err, timing)."""
     import torch
 
+    from sh_assembly_tpu_torch.ops import bits
     from sh_assembly_tpu_torch.ops import join_cuda as jc
     from sh_assembly_tpu_torch.ops import merge128_cuda as m3
+    from sh_assembly_tpu_torch.ops import spectrum as sp
 
     print("== phase 5: K2 and K3 against their plain versions", flush=True)
     err2 = err3 = 0
@@ -692,9 +815,23 @@ def phase5_k2_k3(device):
         store, n, q, kb), jc.count_join_plain(store, n, q, kb)))
     ms = _time_ms(lambda: jc.count_join_cuda(store, n, q, kb), 7)
     plain_ms = _time_ms(lambda: jc.count_join_plain(store, n, q, kb), 3)
-    timing["count_join"] = (ms, plain_ms)
+    # the one PyTorch call for the search itself, on a key column and
+    # clean queries prepared outside the timing
+    skeys = bits.srl(store[:n], sp.payload_bits(kb))
+    qk = torch.where(q == -1, 0, q)
+    library_ms = _time_ms(lambda: torch.searchsorted(skeys, qk), 3)
+    del skeys, qk
+    # every query read (8 B) and answered (4 B), the live store read once;
+    # a search of log2(n) comparisons for each query
+    moved = q.numel() * 12 + n * 8
+    timing["count_join"] = dict(ms=ms, plain_ms=plain_ms,
+                                library_ms=library_ms,
+                                **bound(moved, q.numel() * n.bit_length()))
     print(f"  K2 real shape identical; K2 median {ms:.3f} ms, plain median "
-          f"{plain_ms:.3f} ms ({q.numel() / ms / 1e6:.1f} G queries/s)")
+          f"{plain_ms:.3f} ms ({q.numel() / ms / 1e6:.1f} G queries/s); "
+          f"torch.searchsorted alone {library_ms:.3f} ms; bound "
+          f"{timing['count_join']['bound_ms']:.3f} ms for "
+          f"{moved / 1e9:.2f} GB")
     del store, q
     torch.cuda.empty_cache()
 
@@ -707,11 +844,19 @@ def phase5_k2_k3(device):
     del kern
     ms = _time_ms(lambda: m3.merge128_cuda(*args), 7)
     plain_ms = _time_ms(lambda: m3.merge128_plain(*args), 3)
-    timing["merge128"] = (ms, plain_ms)
-    moved = (args[3] + args[4].numel()) * 17 + args[-1] * 17
+    # 17 B an entry (hi, lo, flag): the live store and the survivors read
+    # and the live result written (as for K1, not the sentinel tail); two
+    # word comparisons for each entry read
+    n_in = args[3] + args[4].numel()
+    moved = (n_in + n_live) * 17
+    whole = (n_in + args[-1]) * 17  # what K3 moves: the tail as well
+    timing["merge128"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                              **bound(moved, 2 * n_in))
     print(f"  K3 real shape: n_live={n_live} identical; K3 median {ms:.3f} "
           f"ms, plain median {plain_ms:.3f} ms; K3 moves >= "
-          f"{moved / 2**30:.2f} GiB -> {moved / ms / 1e6:.1f} GB/s")
+          f"{whole / 2**30:.2f} GiB -> {whole / ms / 1e6:.1f} GB/s; bound "
+          f"{timing['merge128']['bound_ms']:.3f} ms for the "
+          f"{moved / 1e9:.2f} GB of the live result")
     del args
     torch.cuda.empty_cache()
     return err2, err3, timing
@@ -887,6 +1032,230 @@ def phase7_genome():
     return launches
 
 
+def phase8_k4(device):
+    """K4 against its plain version, bitwise, then the profiling entry
+    point at its real shape.  Returns (err, launches, timing)."""
+    import torch
+
+    from sh_assembly_tpu_torch.ops import blocksort_cuda as bs
+    from sh_assembly_tpu_torch.profile import blocksort as prof
+    from sh_assembly_tpu_torch.profile import sort as psort
+
+    print("== phase 8: K4 against its plain version", flush=True)
+    err = n = 0
+    for name, x, W in k4_cases(device):
+        kern, plain = bs.block_sort_cuda(x, W), bs.block_sort_plain(x, W)
+        torch.cuda.synchronize()
+        if not torch.equal(kern, plain):
+            raise AssertionError(
+                f"K4 != plain version on {name}: "
+                f"{int((kern != plain).sum())} of {x.numel()} values differ")
+        err = max(err, _max_abs([(kern, plain)]))
+        n += 1
+    print(f"  {n} cases (windows 2^7..2^17; random, equal, sorted, reversed, "
+          f"extremes) identical")
+    bs.LAUNCHES = 0
+    _, logtxt, _ = _run_main(prof.main, [])  # its own checks raise
+    launches = bs.LAUNCHES
+    r = prof.LAST
+    if "correct: True" not in logtxt or not launches:
+        raise AssertionError("profile.blocksort did not check its output")
+    # every value read once and written once; a comparison sort of a
+    # window needs log2(W) comparisons a value
+    moved = 2 * 4 * r["n"]
+    timing = dict(ms=r["ms"], plain_ms=r["plain_ms"],
+                  library_ms=r["plain_ms"],
+                  **bound(moved, r["n"] * (r["w"].bit_length() - 1)))
+    print(f"  real shape N=2^27 W=2^17: identical; K4 median {r['ms']:.3f} "
+          f"ms ({r['ms'] / r['n'] * 1e6:.4f} ns/element), plain torch.sort "
+          f"rows (also the library call) median {r['plain_ms']:.3f} ms; "
+          f"bound {timing['bound_ms']:.3f} ms for {moved / 2**30:.2f} GiB; "
+          f"K4 launches {launches}")
+    torch.cuda.empty_cache()
+    # the buffer-sort yardsticks beside it, as profile.sort runs them
+    _, logtxt, wall = _run_main(psort.main, [])
+    lines = [ln.split("] ", 1)[-1] for ln in logtxt.splitlines()
+             if " ms  (" in ln]
+    if len(lines) != len(psort.VARIANTS):
+        raise AssertionError("profile.sort did not time every variant")
+    print(f"  profile.sort, 2^27 keys of 36 bits, medians of 3 "
+          f"({wall:.1f} s):")
+    for ln in lines:
+        print(f"    {ln}")
+    torch.cuda.empty_cache()
+    return err, launches, timing
+
+
+def _same_spectrum(a, b, what):
+    import torch
+
+    if (a.n_main, a.ndistinct, int(a.nelts)) != (
+            b.n_main, b.ndistinct, int(b.nelts)) or not torch.equal(
+            a.store.cpu(), b.store.cpu()):
+        raise AssertionError(f"{what}: CUDA and CPU spectra differ")
+
+
+def _library_results(ca, cb, probes, kb):
+    """Every library function of phase 9 on one pair of spectra."""
+    from sh_assembly_tpu_torch.ops import join_cuda as jc
+    from sh_assembly_tpu_torch.ops import spectrum as sp
+
+    before = jc.LAUNCHES
+    r = dict(union=sp.union(ca, cb, kb), intersect=sp.intersect(ca, cb, kb),
+             inner=int(sp.inner_product(ca, cb, kb)),
+             mag=float(sp.magnitude(ca, kb)))
+    r["k2"] = jc.LAUNCHES - before
+    c1, w1, ca = sp.query_set_traveled(ca, probes, kb)  # marks ca in place
+    c2, w2 = sp.query_is_traveled(ca, probes, kb)
+    r.update(c1=c1.cpu(), w1=w1.cpu(), c2=c2.cpu(), w2=w2.cpu(), after=ca)
+    return r
+
+
+def library_cut(device, a, b, kb, m=200_000, Cm=1 << 18):
+    """A cut of the same keys through the CPU and the card."""
+    import torch
+
+    from sh_assembly_tpu_torch.ops import bits
+    from sh_assembly_tpu_torch.ops import spectrum as sp
+
+    g = torch.Generator().manual_seed(3)
+    probes = torch.cat([
+        bits.srl(a.store[:m].cpu()[torch.randint(
+            0, m, (m // 4,), generator=g)], sp.payload_bits(kb)),
+        torch.randint(0, 1 << kb, (m // 4,), generator=g),
+        torch.full((100,), -1, dtype=torch.int64)])
+    probes = probes[torch.randperm(probes.numel(), generator=g)]
+    rc, rg = (_library_results(spectrum_cut(a, m, Cm, kb, d),
+                               spectrum_cut(b, m, Cm, kb, d),
+                               probes.to(d), kb) for d in ("cpu", device))
+    for f in ("union", "intersect", "after"):
+        _same_spectrum(rg[f], rc[f], f)
+    for f in ("c1", "w1", "c2", "w2"):
+        if not torch.equal(rg[f], rc[f]):
+            raise AssertionError(f"traveled query {f}: CUDA and CPU differ")
+    if rg["inner"] != rc["inner"] or abs(rg["mag"] - rc["mag"]) > \
+            1e-9 * rc["mag"]:
+        raise AssertionError(f"inner_product or magnitude differ: {rg['inner']}"
+                             f" vs {rc['inner']}, {rg['mag']} vs {rc['mag']}")
+    if rc["k2"] != 0 or rg["k2"] != 2:
+        raise AssertionError(f"K2 launches in the set operations: CPU "
+                             f"{rc['k2']}, CUDA {rg['k2']} (expected 0 and 2)")
+    if not (0 < rc["intersect"].n_main < m < rc["union"].n_main
+            and rc["w2"].sum() > rc["w1"].sum() > 0):
+        raise AssertionError("the cut exercises no overlap or no traveled bit")
+    print(f"  cut of {m} keys each: union {rc['union'].n_main}, intersect "
+          f"{rc['intersect'].n_main}, inner_product {rc['inner']}, magnitude "
+          f"{rc['mag']:.6f}, traveled before/after the batch "
+          f"{int(rc['w1'].sum())}/{int(rc['w2'].sum())}: CUDA = CPU; "
+          f"K2 launches on CUDA {rg['k2']}")
+
+
+def _library_full(device, a, b, kb, n_q=1 << 24):
+    """The set operations and traveled queries on the full state, held to
+    identities that need no second implementation."""
+    import torch
+
+    from sh_assembly_tpu_torch.ops import bits
+    from sh_assembly_tpu_torch.ops import join_cuda as jc
+    from sh_assembly_tpu_torch.ops import spectrum as sp
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.time() - t0) * 1e3
+
+    torch.cuda.reset_peak_memory_stats()
+    before = jc.LAUNCHES
+    u, t_u = timed(lambda: sp.union(a, b, kb))
+    n_u, nelts_u = u.n_main, int(u.nelts)
+    del u
+    x, t_x = timed(lambda: sp.intersect(a, b, kb))
+    ip, t_ip = timed(lambda: int(sp.inner_product(a, b, kb)))
+    mag, t_m = timed(lambda: float(sp.magnitude(a, kb)))
+    self_ip = int(sp.inner_product(a, a, kb))
+    same = sp.intersect(a, a, kb)
+    k2 = jc.LAUNCHES - before
+    if n_u + x.n_main != a.n_main + b.n_main or not 0 < x.n_main < a.n_main:
+        raise AssertionError(f"|A u B| + |A n B| != |A| + |B|: {n_u}, "
+                             f"{x.n_main}, {a.n_main}, {b.n_main}")
+    if nelts_u != int(a.nelts) + int(b.nelts) or ip <= 0:
+        raise AssertionError("union nelts or inner_product is wrong")
+    if not torch.equal(same.store, a.store) or int(same.nelts) != \
+            int(a.nelts) or abs(self_ip - mag * mag) > 1e-9 * self_ip:
+        raise AssertionError("intersect(a, a) != a or <a, a> != |a|^2")
+    if k2 != 4:
+        raise AssertionError(f"K2 launched {k2} times, expected 4")
+    del same, x
+    gq = torch.Generator(device=device).manual_seed(4)
+    probes = torch.cat([
+        bits.srl(a.store[torch.randint(0, a.n_main, (n_q // 2,), generator=gq,
+                                       device=device)], sp.payload_bits(kb)),
+        torch.randint(0, 1 << kb, (n_q // 2,), generator=gq, device=device)])
+    (c0, w0), _ = timed(lambda: sp.query_is_traveled(a, probes, kb))
+    (c1, w1, a), t_set = timed(lambda: sp.query_set_traveled(a, probes, kb))
+    (c2, w2), t_is = timed(lambda: sp.query_is_traveled(a, probes, kb))
+    if not (torch.equal(c0, c1) and torch.equal(c1, c2)
+            and torch.equal(w0, w1) and torch.equal(w2, c1 > 0)
+            and 0 < int(w1.sum()) < int(w2.sum())):
+        raise AssertionError("traveled queries at full size are inconsistent")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  full state on the card: union {n_u} keys in {t_u:.1f} ms, "
+          f"intersect in {t_x:.1f} ms, inner_product {ip} in {t_ip:.1f} ms, "
+          f"magnitude {mag:.3f} in {t_m:.1f} ms; {n_q} probes: "
+          f"query_set_traveled {t_set:.1f} ms, query_is_traveled {t_is:.1f} "
+          f"ms ({int(w1.sum())} -> {int(w2.sum())} traveled); K2 launches "
+          f"{k2}; peak device memory {peak / 2**30:.2f} GiB")
+
+
+def phase9_library(device):
+    import torch
+
+    print("== phase 9: set operations, traveled queries and tools",
+          flush=True)
+    kb, C, n_live = 37, 1 << 27, 50_000_000
+    a, b = setops_pair(device, n_live, C, kb)
+    print(f"  two spectra of {a.n_main} and {b.n_main} live keys in 2^27 "
+          f"slots, key_bits {kb}")
+    library_cut(device, a, b, kb)
+    _library_full(device, a, b, kb)
+    del a, b
+    torch.cuda.empty_cache()
+    # the tools on phase 6's files
+    from sh_assembly_tpu_torch.cli import compare_contigs, cqf_dump, minia
+
+    d = os.path.join(WORK, "e2e")
+    k = E2E_FLAGS[1]
+    mfa = os.path.join(d, "minia_contigs.fa")
+    rc, _, wall = _run_main(minia.main, [
+        "-kmer-size", k, "-in", os.path.join(d, "unitigs_cuda.fa"),
+        "-unitig", "-out", mfa])
+    if rc != 0:
+        raise AssertionError(f"cli.minia exited {rc}")
+    for what, fa in (("cli.minia's contigs and the pipeline's", mfa),
+                     ("the CPU and the CUDA contigs",
+                      os.path.join(d, "contigs_cpu.fa"))):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = compare_contigs.main(
+                ["-k", k, fa, os.path.join(d, "contigs_cuda.fa")])
+        print("    " + out.getvalue().strip().replace("\n", "\n    "))
+        if rc != 0 or "(1.0000 jaccard)" not in out.getvalue():
+            raise AssertionError(f"{what} are not the same set of sequences")
+        print(f"  cli.compare_contigs: {what} are the same set of sequences")
+    ser = os.path.join(d, "e2e.ser")
+    meta = _ser_meta(ser)
+    rc, header, _ = _run_main(cqf_dump.main, [ser, "--meta-only"])
+    for field in (f"nslots={meta.nslots} ", f"key_bits={meta.key_bits} ",
+                  f"nelts={meta.nelts} ",
+                  f"ndistinct_elts={meta.ndistinct_elts} "):
+        if rc != 0 or field not in header:
+            raise AssertionError(f"cli.cqf_dump --meta-only lacks {field!r}")
+    print(f"  cli.cqf_dump --meta-only agrees with the .ser header; "
+          f"cli.minia took {wall:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -905,6 +1274,8 @@ def main() -> int:
         err2, err3, timing5 = phase5_k2_k3(dev)
         phase6_pipeline_parity()
         launches = phase7_genome()
+        err4, launches["block_sort"], timing["block_sort"] = phase8_k4(dev)
+        phase9_library(dev)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     loaded = [m for m in sys.modules
@@ -912,16 +1283,23 @@ def main() -> int:
     if loaded:
         raise AssertionError(f"JAX package modules loaded: {loaded}")
     timing.update(timing5)
-    rows = [("merge_dedup", "merge", "merge_pallas.py:524", err),
-            ("count_join", "count_join", "join_pallas.py:257", err2),
-            ("merge128", "merge128", "merge128_pallas.py:284", err3)]
+    ops = "sh_assembly_tpu/ops/"
+    pipeline, prof = "phase 7 (cli.pipeline)", \
+        "phase 8 (profile.blocksort.main); the main path: 0"
+    rows = [("merge_dedup", "merge", ops + "merge_pallas.py:524", err,
+             pipeline),
+            ("count_join", "count_join", ops + "join_pallas.py:257", err2,
+             pipeline),
+            ("merge128", "merge128", ops + "merge128_pallas.py:284", err3,
+             pipeline),
+            ("block_sort", "block_sort", "profile_blocksort.py:63", err4,
+             prof)]
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"sh_assembly_tpu_torch/csrc/{name}.cu",
-        "replaces": f"sh_assembly_tpu/ops/{where}",
-        "launches": launches[name], "max_abs_err": e,
-        "ms": timing[t][0], "plain_ms": timing[t][1]}
-        for name, t, where, e in rows]}))
+        "replaces": where, "launches": launches[name],
+        "launches_in": path, "max_abs_err": e, **timing[t]}
+        for name, t, where, e, path in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

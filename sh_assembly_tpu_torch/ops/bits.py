@@ -23,11 +23,17 @@ import torch
 
 SENTINEL = -1  # all-ones 64-bit pattern
 SIGN = -(1 << 63)  # the top bit as an int64 constant
+SIGN32 = -(1 << 31)  # the top bit as an int32 constant
 
 
 def flip(x: torch.Tensor) -> torch.Tensor:
     """Order-preserving map from unsigned to signed order (an involution)."""
     return x ^ SIGN
+
+
+def flip32(x: torch.Tensor) -> torch.Tensor:
+    """``flip`` for int32 tensors that carry u32 bit patterns."""
+    return x ^ SIGN32
 
 
 def srl(x: torch.Tensor, s: int) -> torch.Tensor:
@@ -70,7 +76,7 @@ def to_u64_np(x: torch.Tensor) -> np.ndarray:
     return x.detach().cpu().numpy().view(np.uint64)
 
 
-def from_u64_np(a: np.ndarray, device="cpu") -> torch.Tensor:
+def from_u64_np(a: np.ndarray, device="cuda") -> torch.Tensor:
     """numpy uint64 array -> int64 tensor with the same bit patterns."""
     a = np.ascontiguousarray(a, dtype=np.uint64).view(np.int64)
     return torch.from_numpy(a.copy()).to(device)

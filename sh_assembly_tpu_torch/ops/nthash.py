@@ -87,13 +87,13 @@ def windowed_canonical(codes: torch.Tensor, lengths: torch.Tensor, k: int):
     return keys, valid
 
 
-def seed_table(device="cpu") -> torch.Tensor:
+def seed_table(device="cuda") -> torch.Tensor:
     """The 6-entry ntHash seed table (A, C, G, T, N, pad) as int64."""
     return torch.from_numpy(
         np.asarray(_host.SEEDS, np.uint64).view(np.int64).copy()).to(device)
 
 
-def cseed_table(device="cpu") -> torch.Tensor:
+def cseed_table(device="cuda") -> torch.Tensor:
     """The complement seed table, like seed_table."""
     return torch.from_numpy(
         np.asarray(_host.CSEEDS, np.uint64).view(np.int64).copy()).to(device)

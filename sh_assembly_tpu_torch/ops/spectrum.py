@@ -21,6 +21,11 @@ into the store by kernel K1 (``ops/merge_cuda``), which segment-reduces
 duplicate keys.  The deNoise sweep is K1 with an empty buffer and
 ``drop_singletons``.
 
+Off the hot path: the traveled queries mark and read the traveled bit by
+binary search, and the set operations (``union``, ``intersect``,
+``inner_product``, ``magnitude``) work on merged spectra; ``intersect``
+and ``inner_product`` probe through kernel K2 (``ops/join_cuda``).
+
 Counts kept on the host: ``n_main``/``ndistinct`` (read back once per merge)
 and ``n_buf`` (advances by whole blocks, known without a sync).  ``nelts``
 stays a device scalar so the append path never waits on the device.
@@ -56,7 +61,7 @@ class Spectrum:
         return self.buf.shape[0]
 
 
-def make(capacity: int, buf_capacity: int, device="cpu") -> Spectrum:
+def make(capacity: int, buf_capacity: int, device="cuda") -> Spectrum:
     return Spectrum(
         store=torch.full((capacity,), bits.SENTINEL, dtype=torch.int64,
                          device=device),
@@ -177,17 +182,24 @@ def sweep(spec: Spectrum, key_bits: int) -> Spectrum:
 # Queries (require a merged store)
 
 
-def query(spec: Spectrum, keys: torch.Tensor, key_bits: int) -> torch.Tensor:
-    """Batched count lookup by binary search over the whole packed store,
-    as the JAX package's ``query`` (for tests and tools).  A query key
-    compares as ``key << KSHIFT``: real entries carry a count >= 1 in their
-    payload, so the left insertion point lands on the matching key."""
+def _locate(spec: Spectrum, keys: torch.Tensor, key_bits: int):
+    """Binary search of raw keys over the whole packed store -> (pos, at,
+    found).  A query key compares as ``key << KSHIFT``: real entries carry
+    a count >= 1 in their payload, so the left insertion point lands on
+    the matching key."""
     kshift = payload_bits(key_bits)
     q = keys.reshape(-1)
     pos = torch.searchsorted(bits.flip(spec.store), bits.flip(q << kshift))
     at = spec.store[pos.clamp_(max=spec.capacity - 1)]
     found = (bits.srl(at, kshift) == q) & (q != bits.SENTINEL) & \
         (at != bits.SENTINEL)
+    return pos, at, found
+
+
+def query(spec: Spectrum, keys: torch.Tensor, key_bits: int) -> torch.Tensor:
+    """Batched count lookup by binary search, as the JAX package's
+    ``query`` (for tests and tools)."""
+    _, at, found = _locate(spec, keys, key_bits)
     counts = at & ((1 << cbits(key_bits)) - 1)
     return torch.where(found, counts, 0).to(torch.int32)
 
@@ -231,6 +243,118 @@ def query_join_auto(spec: Spectrum, keys: torch.Tensor,
     return out
 
 
+def query_set_traveled(spec: Spectrum, keys: torch.Tensor, key_bits: int):
+    """Counts and traveled flags of a batch of keys, marking every found
+    key traveled -> (counts int32, was_traveled bool, spec).
+
+    All probes of one batch see the traveled state from before the batch.
+    The traveled bit is ORed into the store IN PLACE (every duplicate probe
+    writes the same word, the pre-batch entry with the bit set); the
+    returned Spectrum is the one passed in.
+    """
+    pos, at, found = _locate(spec, keys, key_bits)
+    cb = cbits(key_bits)
+    counts = torch.where(found, at & ((1 << cb) - 1), 0).to(torch.int32)
+    was = found & ((at & (1 << cb)) != 0)
+    spec.store[pos[found]] = at[found] | (1 << cb)
+    return counts, was, spec
+
+
+def query_is_traveled(spec: Spectrum, keys: torch.Tensor, key_bits: int):
+    """The read-only variant -> (counts int32, traveled bool)."""
+    _, at, found = _locate(spec, keys, key_bits)
+    cb = cbits(key_bits)
+    counts = torch.where(found, at & ((1 << cb) - 1), 0).to(torch.int32)
+    return counts, found & ((at & (1 << cb)) != 0)
+
+
+# ---------------------------------------------------------------------------
+# Set operations on merged spectra
+
+
+def _entries(spec: Spectrum, key_bits: int):
+    """The store as (keys, counts, traveled) int64 tensors; sentinel slots
+    become (-1, 0, 0).  The keys of a merged store ascend, sentinels last."""
+    cb = cbits(key_bits)
+    sent = spec.store == bits.SENTINEL
+    keys = torch.where(sent, bits.SENTINEL,
+                       bits.srl(spec.store, payload_bits(key_bits)))
+    counts = torch.where(sent, 0, spec.store & ((1 << cb) - 1))
+    trav = torch.where(sent, 0, (spec.store >> cb) & 1)
+    return keys, counts, trav
+
+
+def _compacted(words: torch.Tensor, keep: torch.Tensor, spec: Spectrum,
+               nelts: torch.Tensor) -> Spectrum:
+    """A merged Spectrum of ``words[keep]`` (key-ascending already) in
+    spec's capacities.  n_main counts every survivor, also those past the
+    capacity (``check_overflow`` applies)."""
+    C = spec.capacity
+    live = words[keep]
+    n = live.numel()
+    store = torch.full((C,), bits.SENTINEL, dtype=torch.int64,
+                       device=words.device)
+    store[:min(n, C)] = live[:C]
+    return Spectrum(
+        store=store,
+        buf=torch.full((spec.buf_capacity,), bits.SENTINEL,
+                       dtype=torch.int64, device=words.device),
+        n_main=n, n_buf=0, ndistinct=n, nelts=nelts)
+
+
+def union(a: Spectrum, b: Spectrum, key_bits: int) -> Spectrum:
+    """Combine two merged spectra: counts of shared keys summed and
+    saturated at ``count_cap``, traveled bits ORed.  The result has a's
+    capacities and ``nelts = a.nelts + b.nelts``.  A plain sort and fold,
+    as in the JAX package (no kernel there either)."""
+    kshift, cb, cap = payload_bits(key_bits), cbits(key_bits), \
+        count_cap(key_bits)
+    packed = bits.usort(torch.cat([a.store, b.store]))
+    sent = packed == bits.SENTINEL
+    # sentinels keep the full all-ones key, so they never share a run with
+    # a real entry of the maximum key
+    keys = torch.where(sent, bits.SENTINEL, bits.srl(packed, kshift))
+    counts = torch.where(sent, 0, packed & ((1 << cb) - 1))
+    # within a key run the traveled copy sorts last (its bit sits above
+    # the count), so the run's last entry carries the OR of the run
+    trav = (packed >> cb) & 1
+    S = torch.cumsum(counts, 0)
+    edge = keys[1:] != keys[:-1]
+    one = torch.ones(1, dtype=torch.bool, device=packed.device)
+    first, last = torch.cat([one, edge]), torch.cat([edge, one])
+    U = torch.cummax(torch.where(first, S - counts, -1), 0).values
+    totals = (S - U).clamp(max=cap)
+    words = (keys << kshift) | (trav << cb) | totals
+    return _compacted(words, last & ~sent, a, a.nelts + b.nelts)
+
+
+def inner_product(a: Spectrum, b: Spectrum, key_bits: int) -> torch.Tensor:
+    """Sum over shared keys of count_a * count_b (0-dim int64).  a's keys
+    ascend already, so b is probed through ``query_join_sorted`` (K2 on
+    CUDA tensors) with no sort."""
+    ka, ca, _ = _entries(a, key_bits)
+    return (ca * query_join_sorted(b, ka, key_bits).long()).sum()
+
+
+def intersect(a: Spectrum, b: Spectrum, key_bits: int) -> Spectrum:
+    """Keys present in both merged spectra with min(count_a, count_b) and
+    a's traveled bit, in a's capacities; ``nelts`` is the sum of the kept
+    counts.  b is probed like ``inner_product`` does."""
+    ka, ca, ta = _entries(a, key_bits)
+    cbc = query_join_sorted(b, ka, key_bits).long()
+    counts = torch.minimum(ca, cbc)
+    keep = (ka != bits.SENTINEL) & (cbc > 0)
+    words = (ka << payload_bits(key_bits)) | (ta << cbits(key_bits)) | counts
+    return _compacted(words, keep, a, counts[keep].sum())
+
+
+def magnitude(a: Spectrum, key_bits: int) -> torch.Tensor:
+    """sqrt(sum count^2) over the store (0-dim float64)."""
+    _, ca, _ = _entries(a, key_bits)
+    v = ca.double()
+    return torch.sqrt((v * v).sum())
+
+
 # ---------------------------------------------------------------------------
 # Host interop
 
@@ -261,7 +385,7 @@ def to_host(spec: Spectrum, key_bits: int):
 def from_host(keys: np.ndarray, counts: np.ndarray, capacity: int,
               buf_capacity: int, key_bits: int,
               traveled: np.ndarray | None = None,
-              device="cpu") -> Spectrum:
+              device="cuda") -> Spectrum:
     """Build a merged device spectrum from host (key, count) arrays."""
     n = len(keys)
     if n > capacity:
@@ -298,7 +422,7 @@ def _split_planes(w: np.ndarray):
 
 
 def from_jax_planes(hi, lo, buf_hi, buf_lo, n_main, n_buf, ndistinct, nelts,
-                    device="cpu") -> Spectrum:
+                    device="cuda") -> Spectrum:
     """A Spectrum from the JAX package's state (numpy u32 planes and
     scalars), so both packages can start from one state."""
     return Spectrum(

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import statistics
 import time
 from dataclasses import dataclass, field
 
@@ -35,6 +36,28 @@ class _PhaseStat:
 def _sync() -> None:
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
+
+
+def median_ms(fn, reps: int, device) -> float:
+    """Median over ``reps`` calls of ``fn``'s time in milliseconds: CUDA
+    events around each call on a CUDA device, the host clock on the CPU.
+    The caller warms ``fn`` up first."""
+    times = []
+    if torch.device(device).type == "cuda":
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+    else:
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
 
 
 @dataclass

@@ -77,7 +77,8 @@ def test_ser_byte_identical_to_reference_hot_loop(ref_count, workload,  # noqa: 
 
 def test_port_runs_without_jax(workload, tmp_path):  # noqa: F811
     """With `import jax` made to fail, the port's CLI imports and counts,
-    and neither jax nor the JAX package gets loaded."""
+    its tools, profiling entry points and set operations run, and neither
+    jax nor the JAX package gets loaded."""
     out = tmp_path / "nojax.ser"
     code = textwrap.dedent(f"""
         import sys
@@ -86,6 +87,17 @@ def test_port_runs_without_jax(workload, tmp_path):  # noqa: F811
         rc = cqf_denoise.main({_argv(workload, out, {"flags": ["--deNoise", "0"]})!r}
                               + ["--device", "cpu"])
         assert rc == 0, rc
+        # the tools and the library surface off the main path
+        from sh_assembly_tpu_torch.cli import compare_contigs, cqf_dump, minia
+        from sh_assembly_tpu_torch.ops import blocksort_cuda, spectrum
+        from sh_assembly_tpu_torch.profile import blocksort, sort
+        assert cqf_dump.main([{str(out)!r}, "--meta-only"]) == 0
+        assert blocksort.main(["--device", "cpu", "--log2-n", "12",
+                               "--log2-w", "8"]) == 0
+        assert sort.main(["--device", "cpu", "--log2-n", "12"]) == 0
+        a = spectrum.from_host([1, 2, 3], [4, 5, 6], 8, 8, 30, device="cpu")
+        assert int(spectrum.inner_product(a, spectrum.union(a, a, 30), 30)) \
+            == 2 * (16 + 25 + 36)
         loaded = [m for m in sys.modules
                   if m == "sh_assembly_tpu" or m.startswith("sh_assembly_tpu.")
                   or (m.startswith("jax") and sys.modules[m] is not None)]

@@ -20,6 +20,8 @@ from sh_assembly_tpu_torch.models import contiger
 from sh_assembly_tpu_torch.ops import bits, kmerpack_np
 from sh_assembly_tpu_torch.ops import spectrum as sp
 
+DEV = "cpu"  # the port's functions default to the GPU
+
 KEY_BITS = 22  # dense enough for phantom nodes at this genome size
 
 
@@ -59,7 +61,7 @@ def _spectra(reads, k):
         hi=np.asarray(jspec.hi), lo=np.asarray(jspec.lo),
         buf_hi=np.asarray(jspec.buf_hi), buf_lo=np.asarray(jspec.buf_lo),
         n_main=int(jspec.n_main), n_buf=int(jspec.n_buf),
-        ndistinct=int(jspec.ndistinct), nelts=int(jspec.nelts))
+        ndistinct=int(jspec.ndistinct), nelts=int(jspec.nelts), device=DEV)
     return jspec, spec
 
 
@@ -107,7 +109,7 @@ def test_stages_match_jax(k, super_batch, pend_supers):
     ref = jcontiger.build_oriented_graph(
         jspec, jnp.asarray(pad_hi), jnp.asarray(pad_lo), k, KEY_BITS, amin)
     got = contiger.build_oriented_graph(
-        spec, bits.from_u64_np(pad_hi), bits.from_u64_np(pad_lo), k,
+        spec, bits.from_u64_np(pad_hi, DEV), bits.from_u64_np(pad_lo, DEV), k,
         KEY_BITS, amin)
     for g, r, name in zip(got, ref, ("nsucc", "chain_next", "node_counts")):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r), name)
@@ -125,7 +127,7 @@ def test_phantom_closure_with_a_truncated_round():
                    .astype(np.uint64))
     counts = np.full(n, 5, np.int64)
     jspec = jsp.from_host(keys, counts, n, 1024, key_bits)
-    spec = sp.from_host(keys, counts, n, 1024, key_bits)
+    spec = sp.from_host(keys, counts, n, 1024, key_bits, device=DEV)
     v = rng.choice(1 << (2 * k), 900, replace=False).astype(np.uint64) \
         << np.uint64(64 - 2 * k)
     rv, _ = kmerpack_np.revcomp_packed(v, np.zeros_like(v), k)
@@ -143,8 +145,8 @@ def test_phantom_closure_with_a_truncated_round():
     contiger.phantom_candidates = spy
     try:
         hi, lo, n_ph = contiger.close_over_phantoms(
-            spec, bits.from_u64_np(hi0), bits.from_u64_np(lo0), k, key_bits,
-            1)
+            spec, bits.from_u64_np(hi0, DEV), bits.from_u64_np(lo0, DEV), k,
+            key_bits, 1)
     finally:
         contiger.phantom_candidates = real
     jhi, jlo, jn = jcontiger.close_over_phantoms(jspec, hi0, lo0, k,

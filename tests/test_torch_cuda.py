@@ -1,7 +1,7 @@
-"""Kernels K1 (csrc/merge_dedup.cu), K2 (csrc/count_join.cu) and K3
-(csrc/merge128.cu) against their plain PyTorch versions on the GPU,
-bitwise, and the counting stage and the Contiger on CUDA against the CPU
-path.
+"""Kernels K1 (csrc/merge_dedup.cu), K2 (csrc/count_join.cu), K3
+(csrc/merge128.cu) and K4 (csrc/block_sort.cu) against their plain PyTorch
+versions on the GPU, bitwise, and the counting stage, the Contiger, the
+set operations and the traveled queries on CUDA against the CPU path.
 
 Marked ``cuda``: without a GPU every test here skips.  On a machine with
 one (no JAX needed; the repository's conftest imports JAX, so skip it):
@@ -18,7 +18,8 @@ from sh_assembly_tpu_torch import config as cfg
 from sh_assembly_tpu_torch.io import fastq
 from sh_assembly_tpu_torch.models import counter
 from sh_assembly_tpu_torch.models import contiger
-from sh_assembly_tpu_torch.ops import join_cuda, merge128_cuda, merge_cuda
+from sh_assembly_tpu_torch.ops import blocksort_cuda, join_cuda, \
+    merge128_cuda, merge_cuda
 from sh_assembly_tpu_torch.ops import spectrum as sp
 
 pytestmark = pytest.mark.cuda
@@ -147,3 +148,35 @@ def test_contiger_cuda_matches_cpu(gpu, k):
     for f in ("seq_codes", "offsets", "med", "after_ptr", "after_val",
               "before_ptr", "before_val"):
         np.testing.assert_array_equal(getattr(ac, f), getattr(ag, f), f)
+
+
+def test_k4_matches_plain(gpu):
+    n = 0
+    for name, x, W in chip_smoke.k4_cases(gpu):
+        before = blocksort_cuda.LAUNCHES
+        got = blocksort_cuda.block_sort(x, W)
+        assert blocksort_cuda.LAUNCHES == before + 1
+        assert torch.equal(got, blocksort_cuda.block_sort_plain(x, W)), name
+        ref = np.sort(x.cpu().numpy().view(np.uint32).reshape(-1, W), axis=1)
+        np.testing.assert_array_equal(
+            got.cpu().numpy().view(np.uint32), ref.reshape(-1), name)
+        n += 1
+    assert n >= 40
+
+
+def test_k4_refuses_what_the_kernel_does_not_take(gpu):
+    x = torch.zeros(1024, dtype=torch.int32, device=gpu)
+    before = blocksort_cuda.LAUNCHES
+    for bad, W in ((x[:768], 384), (x, 64), (x[:640], 256), (x.long(), 128),
+                   (x[::2], 128)):
+        with pytest.raises(ValueError):
+            blocksort_cuda.block_sort(bad, W)
+    assert blocksort_cuda.LAUNCHES == before
+
+
+def test_library_surface_cuda_matches_cpu(gpu):
+    kb = 37
+    a, b = chip_smoke.setops_pair(gpu, 300_000, 1 << 19, kb)
+    # CUDA = CPU for the set operations and the traveled queries, with
+    # inner_product and intersect launching K2 on the card only
+    chip_smoke.library_cut(gpu, a, b, kb, m=100_000, Cm=1 << 17)

@@ -15,11 +15,13 @@ from sh_assembly_tpu.ops import nthash as jnthash
 from sh_assembly_tpu_torch.ops import bits, kmerpack as kp, kmerpack_np
 from sh_assembly_tpu_torch.ops import nthash
 
+DEV = "cpu"  # the port's functions default to the GPU
+
 KS = [21, 31, 32, 33, 47, 62, 63]
 
 
 def _t(a: np.ndarray) -> torch.Tensor:
-    return bits.from_u64_np(np.asarray(a, np.uint64))
+    return bits.from_u64_np(np.asarray(a, np.uint64), DEV)
 
 
 def _eq(got: torch.Tensor, ref) -> None:
@@ -129,5 +131,5 @@ def test_sort_pairs_is_unsigned_lexicographic():
 
 
 def test_seed_tables_match_jax():
-    _eq(nthash.seed_table(), jnthash.seed_table())
-    _eq(nthash.cseed_table(), jnthash.cseed_table())
+    _eq(nthash.seed_table(DEV), jnthash.seed_table())
+    _eq(nthash.cseed_table(DEV), jnthash.cseed_table())

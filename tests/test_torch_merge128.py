@@ -21,6 +21,8 @@ from sh_assembly_tpu_torch.ops import spectrum as sp
 from test_merge128_pallas import L, A, _maybe_interpret, _mk_stream, \
     _rand_kmers
 
+DEV = "cpu"  # the port's functions default to the GPU
+
 SENT = np.uint64(0xFFFFFFFFFFFFFFFF)
 
 
@@ -38,7 +40,7 @@ def _rand_pairs(rng, n: int, k: int):
 
 
 def _t(a) -> torch.Tensor:
-    return bits.from_u64_np(np.asarray(a, np.uint64))
+    return bits.from_u64_np(np.asarray(a, np.uint64), DEV)
 
 
 @pytest.mark.parametrize("k,abundance_min,overflow", [
@@ -80,7 +82,7 @@ def test_flush_matches_jax_xla_fold(k, abundance_min, overflow):
                       rng.integers(2, 50, len(keys)))
     C = 1 << int(np.ceil(np.log2(len(keys) + 1)))
     jspec = jsp.from_host(keys, counts, C, 1 << 10, key_bits)
-    spec = sp.from_host(keys, counts, C, 1 << 10, key_bits)
+    spec = sp.from_host(keys, counts, C, 1 << 10, key_bits, device=DEV)
 
     oh, ol, oseed, n_store, *_ = jcontiger._flush_pending(
         jspec, jnp.asarray(s_hi), jnp.asarray(s_lo), jnp.asarray(s_seed),

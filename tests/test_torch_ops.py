@@ -14,6 +14,7 @@ from sh_assembly_tpu.ops import packio as jpackio
 from sh_assembly_tpu.utils import nthash as host_nthash
 from sh_assembly_tpu_torch.ops import bits, nthash, packio
 
+DEV = "cpu"  # the port's functions default to the GPU
 
 def _codes(rng, B, L, n_rate=0.03):
     """Random reads with N codes, ragged lengths and pad (5) tails."""
@@ -77,7 +78,7 @@ def test_unsigned_helpers_match_numpy():
     x = rng.integers(0, 1 << 64, size=4096, dtype=np.uint64)
     x[:4] = [0, 1, 1 << 63, 0xFFFFFFFFFFFFFFFF]
     s = rng.integers(0, 64, size=4096).astype(np.uint64)
-    tx = bits.from_u64_np(x)
+    tx = bits.from_u64_np(x, DEV)
     ts = torch.from_numpy(s.astype(np.int64))
     np.testing.assert_array_equal(bits.to_u64_np(bits.rol_t(tx, ts)),
                                   host_nthash.rol(x, s))
@@ -89,5 +90,6 @@ def test_unsigned_helpers_match_numpy():
                                       x >> np.uint64(c))
     y = rng.integers(0, 1 << 64, size=4096, dtype=np.uint64)
     np.testing.assert_array_equal(
-        bits.to_u64_np(bits.umin(tx, bits.from_u64_np(y))), np.minimum(x, y))
+        bits.to_u64_np(bits.umin(tx, bits.from_u64_np(y, DEV))),
+        np.minimum(x, y))
     np.testing.assert_array_equal(bits.to_u64_np(bits.usort(tx)), np.sort(x))

@@ -17,13 +17,16 @@ from sh_assembly_tpu_torch.ops import spectrum as sp
 # the interpret-mode harness of the JAX package's own kernel test
 from test_join_pallas import run_kernel
 
+DEV = "cpu"  # the port's functions default to the GPU
+
 SENT = np.uint64(0xFFFFFFFFFFFFFFFF)
 
 
 def _spectra(keys, counts, trav, key_bits, capacity=None):
     C = capacity or 1 << int(np.ceil(np.log2(len(keys) + 1)))
     js = jsp.from_host(keys, counts, C, 1 << 10, key_bits, traveled=trav)
-    ps = sp.from_host(keys, counts, C, 1 << 10, key_bits, traveled=trav)
+    ps = sp.from_host(keys, counts, C, 1 << 10, key_bits, traveled=trav,
+                      device=DEV)
     return js, ps
 
 
@@ -54,13 +57,13 @@ def test_queries_match_jax_query_join(seed, key_bits, n_spec, n_q):
     js, ps = _spectra(keys, counts, trav, key_bits)
     ref = np.asarray(jsp.query_join(js, jnp.asarray(q), key_bits))
     assert (ref > 0).sum() > n_q // 3
-    tq = bits.from_u64_np(q)
+    tq = bits.from_u64_np(q, DEV)
     for fn in (sp.query, sp.query_join, sp.query_join_auto):
         got = fn(ps, tq, key_bits)
         assert got.dtype == torch.int32, fn.__name__
         np.testing.assert_array_equal(got.numpy(), ref, fn.__name__)
     order = np.argsort(q, kind="stable")
-    got = sp.query_join_sorted(ps, bits.from_u64_np(q[order]), key_bits)
+    got = sp.query_join_sorted(ps, bits.from_u64_np(q[order], DEV), key_bits)
     np.testing.assert_array_equal(got.numpy(), ref[order])
 
 
@@ -75,7 +78,7 @@ def test_queries_against_an_empty_spectrum():
     ref = np.asarray(jsp.query_join(js, jnp.asarray(q), key_bits))
     assert not ref.any()
     for fn in (sp.query, sp.query_join, sp.query_join_auto):
-        assert not fn(ps, bits.from_u64_np(q), key_bits).any()
+        assert not fn(ps, bits.from_u64_np(q, DEV), key_bits).any()
 
 
 def test_query_join_budget_checks_match_jax():
@@ -87,7 +90,7 @@ def test_query_join_budget_checks_match_jax():
     with pytest.raises(ValueError, match="too large"):
         jsp.query_join(js, jnp.asarray(q), key_bits)
     with pytest.raises(ValueError, match="too large"):
-        sp.query_join(ps, bits.from_u64_np(q), key_bits)
+        sp.query_join(ps, bits.from_u64_np(q, DEV), key_bits)
     # the run-id field: (C + Nq).bit_length() + payload_bits - 1 <= 63
     key_bits = 22
     js, ps = _spectra(np.arange(5, dtype=np.uint64), np.ones(5, np.int64),
@@ -96,7 +99,7 @@ def test_query_join_budget_checks_match_jax():
     with pytest.raises(ValueError, match="run-id"):
         jsp.query_join(js, jnp.asarray(q), key_bits)
     with pytest.raises(ValueError, match="run-id"):
-        sp.query_join(ps, bits.from_u64_np(q), key_bits)
+        sp.query_join(ps, bits.from_u64_np(q, DEV), key_bits)
 
 
 def test_plain_count_join_matches_interpreted_tpu_kernel():
@@ -104,7 +107,8 @@ def test_plain_count_join_matches_interpreted_tpu_kernel():
     keys, counts, trav, q = _case(6, 22, 1500, 1200)
     js, ps = _spectra(keys, counts, trav, 22)
     q = np.sort(q)  # ascending, sentinels last
-    got = join_cuda.count_join(ps.store, ps.n_main, bits.from_u64_np(q), 22)
+    got = join_cuda.count_join(ps.store, ps.n_main,
+                               bits.from_u64_np(q, DEV), 22)
     ref = run_kernel(js, q, 22)
     live = q != SENT
     np.testing.assert_array_equal(got.numpy()[live], ref[live])

@@ -13,6 +13,8 @@ from sh_assembly_tpu.ops import spectrum as jsp
 from sh_assembly_tpu_torch.ops import merge_cuda
 from sh_assembly_tpu_torch.ops import spectrum as sp
 
+DEV = "cpu"  # the port's functions default to the GPU
+
 SENT = np.uint64(0xFFFFFFFFFFFFFFFF)
 
 
@@ -24,7 +26,7 @@ def _jax_state(spec) -> dict:
 
 
 def _port(jspec) -> sp.Spectrum:
-    return sp.from_jax_planes(**_jax_state(jspec))
+    return sp.from_jax_planes(**_jax_state(jspec), device=DEV)
 
 
 def _assert_same(port_spec, jspec):
@@ -123,7 +125,7 @@ def test_insert_merge_sweep_sequence():
     rng = np.random.default_rng(11)
     key_bits, C, BC = 30, 1 << 13, 1 << 12
     jspec = jsp.make(C, BC)
-    spec = sp.from_jax_planes(**_jax_state(jspec))
+    spec = sp.from_jax_planes(**_jax_state(jspec), device=DEV)
     pool = rng.integers(0, 1 << key_bits, size=3000, dtype=np.uint64)
     for step in range(6):
         for _ in range(3):
@@ -148,7 +150,8 @@ def test_host_roundtrip_and_overflow(rng):
                                   dtype=np.uint64))
     counts = rng.integers(1, 1000, size=len(keys))
     trav = rng.integers(0, 2, size=len(keys)).astype(np.uint8)
-    spec = sp.from_host(keys, counts, 1024, 256, key_bits, traveled=trav)
+    spec = sp.from_host(keys, counts, 1024, 256, key_bits, traveled=trav,
+                        device=DEV)
     jspec = jsp.from_host(keys, counts, 1024, 256, key_bits, traveled=trav)
     _assert_same(spec, jspec)
     k2, c2, t2 = sp.to_host(spec, key_bits)
@@ -156,7 +159,8 @@ def test_host_roundtrip_and_overflow(rng):
     np.testing.assert_array_equal(c2, counts)
     np.testing.assert_array_equal(t2, trav)
     # a merge into too small a store reports the true count and raises
-    small = sp.from_host(keys, counts, len(keys), 256, key_bits)
+    small = sp.from_host(keys, counts, len(keys), 256, key_bits,
+                         device=DEV)
     fresh = np.arange(len(keys) + 1, len(keys) + 11, dtype=np.uint64)
     small = sp.insert(small, torch.from_numpy(fresh.view(np.int64)))
     merged = sp.merge(small, key_bits)
