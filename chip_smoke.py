@@ -14,9 +14,13 @@ exits non-zero without printing a result:
   2. K1 against its plain PyTorch twin on the card, bitwise: the merge
      cases of the JAX package's kernel tests, the maximum key, counts at
      the cap, empty inputs, runs spanning many tiles, an overflowing
-     merge, and one merge and one sweep at the counting stage's real
-     size (~100 M live entries, a full 2^27 buffer, key_bits 37, 2^29
-     slots), timed against the twin.
+     merge; a chain of folds on one reused pair of buffers (merge, merge,
+     a sweep that shrinks the store, merge, an overflow, a merge after
+     it), the whole capacity compared after every step; an output whose
+     clean part is poisoned, which must come back untouched; and one
+     merge and one sweep at the counting stage's real size (~100 M live
+     entries, a full 2^27 buffer, key_bits 37, 2^29 slots) into a reused
+     output, as the store calls them, timed against the twin.
   3. parity: the CQF-deNoise CLI on one synthetic FASTQ with --device cpu
      and --device cuda, with deNoise sweeps firing mid-stream; the two
      .ser files must be byte-identical.
@@ -27,10 +31,15 @@ exits non-zero without printing a result:
   5. K2 (count join) and K3 (node-store fold) against their plain PyTorch
      versions on the card, bitwise: the cases of the JAX package's kernel
      tests, empty and all-matching inputs, the maximum key, traveled
-     entries, sentinels, k = 62 poly-T k-mers, an overflowing fold, and
+     entries, sentinels, tiles of queries whose store range is wide,
+     empty or ends on a tile boundary, duplicate queries, tensors that are
+     not 16-byte aligned, k = 62 poly-T k-mers, an overflowing fold, and
      one call each at the main path's real shape (9 x 2^24 probes against
-     phase 2's 100 M-entry store; a 12 M-entry node store against 2^22
-     survivors), timed against the plain versions.
+     phase 2's 100 M-entry store, and 2^22 probes, a sparse shape, beside
+     them; a 12 M-entry node store against 2^22 survivors), timed against
+     the plain versions; then the profiling entry point for K1 and K2
+     (profile.kernels.main), which times the wrappers and each of their
+     kernels by name.
   6. parity: the pipeline CLI (reads -> unitigs -> contigs) on the bench's
      end-to-end shape with --device cpu and --device cuda; unitigs.fa and
      contigs.fa must be byte-identical and the CUDA run must launch K1,
@@ -67,7 +76,9 @@ phase 8's profiling entry point for K4, which the main path never
 launches), times, and each kernel's bound, the least time the card could
 take, computed from this run's shapes and results: the larger of the
 bytes moved (each input read once, the live result written once) over
-HBM_BYTES_PER_S and the key comparisons over OPS_PER_S.  Work files go to
+HBM_BYTES_PER_S and the key comparisons over OPS_PER_S; K2's entry also
+has its time at the sparse shape (sparse_ms) beside torch.searchsorted's
+there (sparse_library_ms).  Work files go to
 build/chip_smoke/ (ignored by git) and are removed at the end.
 """
 
@@ -205,9 +216,83 @@ def k1_cases(device):
     for name, s, kb, drop, C in specs:
         buf = sp.sort_pack_buf(s.buf[:s.n_buf], kb)
         yield name, s.store, buf, s.n_main, kb, drop, C
+        if name == "tiles_hot_drop0":
+            # views that start 8 bytes into their tensors: no 16-byte
+            # alignment
+            yield ("unaligned_views", s.store[1:], buf[1:], s.n_main - 1, kb,
+                   drop, C)
         if not drop and name.startswith("case"):
             # the sweep of the same store: K1 with an empty buffer
             yield name + "_sweep", s.store, buf[:0], s.n_main, kb, True, C
+
+
+K1_CHAIN = dict(key_bits=30, capacity=40_000)
+
+
+def k1_chain(device, merge, reuse: bool, seed=31):
+    """A chain of folds on one store through ``merge`` (K1's wrapper or its
+    plain twin): merge, merge, a sweep that shrinks the store, merge, an
+    overflowing merge, a sweeping merge after it.  With ``reuse`` each
+    fold writes into the buffer the fold before read, as ``spectrum._fold``
+    does; without, into a fresh tensor.  Yields (name, the whole output,
+    n_live, n_dropped) after every step."""
+    import torch
+
+    from sh_assembly_tpu_torch.ops import spectrum as sp
+
+    kb, C = K1_CHAIN["key_bits"], K1_CHAIN["capacity"]
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(0, 1 << kb, size=30_000, dtype=np.uint64)
+
+    def block(n):
+        keys = rng.choice(pool, size=n)
+        keys[rng.random(n) < 0.1] = _SENT64
+        return keys
+
+    steps = [("merge1", block(20_000), False),
+             ("merge2", block(20_000), False),
+             ("sweep", np.empty(0, np.uint64), True),
+             ("merge3", block(10_000), False),
+             ("overflow", rng.integers(0, 1 << kb, size=40_000,
+                                       dtype=np.uint64), False),
+             ("merge_after_overflow", block(5_000), True)]
+    store = torch.full((C,), -1, dtype=torch.int64, device=device)
+    spare, dirty, n_main = torch.full_like(store, -1), 0, 0
+    for name, keys, drop in steps:
+        buf = sp.sort_pack_buf(
+            torch.from_numpy(keys.view(np.int64)).to(device), kb)
+        into = dict(out=spare, out_dirty=dirty) if reuse else {}
+        out, n_live, n_drop = merge(store, buf, n_main, kb, drop, C, **into)
+        yield name, out.clone(), int(n_live), int(n_drop)
+        spare, dirty = store, n_main
+        store, n_main = out, min(int(n_live), C)
+
+
+K1_POISON = 0x5A5A5A5A5A5A5A5A
+
+
+def k1_poisoned_output(device, merge):
+    """Merges into an output that holds poison where the caller promises
+    sentinels, once with ``out_dirty`` below the merge's n_live and once
+    above it: the merge must write live entries, then sentinels up to
+    ``out_dirty``, and nothing behind.  Raises if it does."""
+    import torch
+
+    _, main, buf, n_main, kb, drop, C = next(
+        c for c in k1_cases(device) if c[0] == "case0_kb33")
+    want, n_live, _ = merge(main, buf, n_main, kb, drop, C)
+    n_live = int(n_live)
+    for out_dirty in (n_live // 2, C - 10):
+        out = torch.full((C,), K1_POISON, dtype=torch.int64, device=device)
+        got, n_got, _ = merge(main, buf, n_main, kb, drop, C, out=out,
+                              out_dirty=out_dirty)
+        clean = max(n_live, out_dirty)
+        if not (got is out and int(n_got) == n_live < C - 10
+                and torch.equal(out[:clean], want[:clean])
+                and bool((out[clean:] == K1_POISON).all())):
+            raise AssertionError(
+                f"merge with out_dirty={out_dirty}, n_live={n_live}: wrong "
+                f"entries, or words written at or beyond the clean extent")
 
 
 _SENT64 = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -273,24 +358,31 @@ def k2_cases(device):
     s = spectrum(np.array([1, 2], np.uint64), np.array([3, 4]), None, 22)
     q = np.array([1, (1 << 22) - 1, int(_SENT64)], np.uint64)
     yield ("maxkey_absent", s.store, s.n_main, bits.from_u64_np(q, device), 22)
-
-
-def k2_big_case(store, n_main, key_bits, n_q=9 << 24, seed=6):
-    """The graph probes' real shape against phase 2's store: 9 x 2^24
-    ascending probe keys, half of them stored keys, with a sentinel tail."""
-    import torch
-
-    from sh_assembly_tpu_torch.ops import bits, spectrum as sp
-
-    g = torch.Generator(device=store.device).manual_seed(seed)
-    half = n_q // 2
-    pick = torch.randint(0, n_main, (half,), generator=g, device=store.device)
-    hits = bits.srl(store[pick], sp.payload_bits(key_bits))
-    fresh = torch.randint(0, 1 << key_bits, (n_q - half - n_q // 64,),
-                          generator=g, device=store.device)
-    q = torch.sort(torch.cat([hits, fresh])).values
-    return torch.cat([q, torch.full((n_q // 64,), -1, dtype=torch.int64,
-                                    device=store.device)])
+    # few queries against a wide store: a tile's range does not fit in
+    # shared memory and is searched in device memory
+    yield ("wide_range", *case(7, 37, 300_000, 5000))
+    # tiles whose queries all lie above the last stored key: empty ranges
+    rng = np.random.default_rng(8)
+    keys = np.unique(rng.integers(0, 1 << 20, size=3000, dtype=np.uint64))
+    s = spectrum(keys, rng.integers(1, 200, size=len(keys)), None, 30)
+    q = np.sort(np.concatenate([
+        rng.choice(keys, size=3000),
+        rng.integers(1 << 21, 1 << 30, size=9000, dtype=np.uint64)]))
+    yield ("empty_ranges", s.store, s.n_main, bits.from_u64_np(q, device), 30)
+    # every stored key queried once, then four times: whatever the tile
+    # size, tiles end on the store word the next tile starts with
+    keys = np.arange(20_000, dtype=np.uint64) * np.uint64(3)
+    s = spectrum(keys, rng.integers(1, 200, size=len(keys)), None, 30)
+    for rep in (1, 4):
+        yield (f"range_on_tile_boundary_x{rep}", s.store, s.n_main,
+               bits.from_u64_np(np.repeat(keys, rep), device), 30)
+    # one stored key and one absent key, 10,000 times each
+    q = np.repeat(np.array([3000, 3001], np.uint64), 10_000)
+    yield ("all_duplicates", s.store, s.n_main, bits.from_u64_np(q, device),
+           30)
+    # views that start 8 bytes into their tensors: no 16-byte alignment
+    store, n_main, q, kb = case(9, 37, 50_000, 70_000)
+    yield ("unaligned_views", store[1:], n_main - 1, q[1:], kb)
 
 
 def _rand_kmers(rng, n: int, k: int):
@@ -408,34 +500,6 @@ def k3_big_case(device, n_store=12_000_000, cap=1 << 24, n_b=1 << 22,
     perm = kp.sort_pairs(b_hi, b_lo, b_nf)
     return (a_hi, a_lo, a_nf, n_store, b_hi[perm].contiguous(),
             b_lo[perm].contiguous(), b_nf[perm].contiguous(), cap)
-
-
-def big_case(device, n_live=100_000_000, n_buf=1 << 27, key_bits=37,
-             capacity=1 << 29, seed=5):
-    """One merge at the counting stage's real size, generated on the card:
-    n_live distinct keys in the store, a full buffer of which half hits
-    stored keys, 5% of slots empty."""
-    import torch
-
-    from sh_assembly_tpu_torch.ops import spectrum as sp
-
-    g = torch.Generator(device=device).manual_seed(seed)
-    keys = torch.unique(torch.randint(0, 1 << key_bits, (n_live + n_live // 50,),
-                                      generator=g, device=device))[:n_live]
-    n = keys.numel()
-    counts = torch.randint(1, 200, (n,), generator=g, device=device)
-    trav = torch.randint(0, 2, (n,), generator=g, device=device)
-    kshift, cb = sp.payload_bits(key_bits), sp.cbits(key_bits)
-    store = torch.full((capacity,), -1, dtype=torch.int64, device=device)
-    store[:n] = (keys << kshift) | (trav << cb) | counts
-    pick = torch.randint(0, n, (n_buf,), generator=g, device=device)
-    fresh = torch.randint(0, 1 << key_bits, (n_buf,), generator=g,
-                          device=device)
-    u = torch.rand(n_buf, generator=g, device=device)
-    buf = torch.where(u < 0.5, keys[pick], fresh)
-    buf = torch.where(u > 0.95, -1, buf)
-    del keys, counts, trav, pick, fresh, u
-    return store, sp.sort_pack_buf(buf, key_bits), n, key_bits, capacity
 
 
 def k4_cases(device):
@@ -579,6 +643,7 @@ def phase2_k1(device):
     import torch
 
     from sh_assembly_tpu_torch.ops import merge_cuda as mc
+    from sh_assembly_tpu_torch.profile import kernels as pk
 
     print("== phase 2: K1 against its plain twin", flush=True)
     err = 0
@@ -592,34 +657,65 @@ def phase2_k1(device):
               f"drop={drop} C={C} -> n_live={int(kern[1])} "
               f"n_dropped={int(kern[2])} identical")
 
-    store, buf, n, kb, C = big_case(device)
-    print(f"  real size: n_main={n} buf={buf.numel()} key_bits={kb} "
-          f"capacity={C}", flush=True)
+    # folds chained on one reused pair of buffers against the twin writing
+    # fresh tensors: the whole capacity, so the tail's bookkeeping too
+    counts = []
+    for (name, *kern), (_, *plain) in zip(
+            k1_chain(device, mc.merge_dedup_cuda, reuse=True),
+            k1_chain(device, mc.merge_dedup_plain, reuse=False)):
+        err = max(err, _compare(f"chain {name}", kern, plain))
+        counts.append(kern[1])
+        print(f"  chain {name}: n_live={kern[1]} n_dropped={kern[2]} "
+              f"identical over all {K1_CHAIN['capacity']} slots")
+    if not (counts[2] < counts[1] and counts[4] > K1_CHAIN["capacity"]
+            and counts[5] <= K1_CHAIN["capacity"]):
+        raise AssertionError(f"the chain does not shrink, overflow and "
+                             f"recover: {counts}")
+    k1_poisoned_output(device, mc.merge_dedup_cuda)
+    print("  poisoned output: nothing written at or beyond the clean extent")
+
+    store, buf, n, kb, C = pk.big_case(device)
+    nb_live = int((buf != -1).sum())
+    print(f"  real size: n_main={n} buf={buf.numel()} ({nb_live} live) "
+          f"key_bits={kb} capacity={C}", flush=True)
     timing = {}
+    out = torch.full((C,), -1, dtype=torch.int64, device=device)
+    held = 0  # out is all sentinel from here on
     for label, b, drop in (("merge", buf, False), ("sweep", buf[:0], True)):
-        kern = mc.merge_dedup_cuda(store, b, n, kb, drop, C)
+        # into a reused output that last held the store's n entries or
+        # more, as spectrum._fold hands it in
+        def into_reused():
+            return mc.merge_dedup_cuda(store, b, n, kb, drop, C, out=out,
+                                       out_dirty=max(held, n))
+
+        kern = into_reused()
         plain = mc.merge_dedup_plain(store, b, n, kb, drop, C)
         err = max(err, _compare(f"real-size {label}", kern, plain))
-        n_live, n_drop = int(kern[1]), int(kern[2])
+        held = n_live = int(kern[1])
+        n_drop = int(kern[2])
         del kern, plain
-        ms = _time_ms(lambda: mc.merge_dedup_cuda(store, b, n, kb, drop, C), 7)
+        ms = _time_ms(into_reused, 7)
+        fresh_ms = _time_ms(
+            lambda: mc.merge_dedup_cuda(store, b, n, kb, drop, C), 7)
         plain_ms = _time_ms(
             lambda: mc.merge_dedup_plain(store, b, n, kb, drop, C), 3)
-        # the live store and the buffer read and the live result written:
-        # a design may skip the sentinel tail, so the bound leaves it out;
-        # one key comparison for each word read
+        # the bound: the live store and the buffer read and the live
+        # result written, one key comparison for each word read.  What K1
+        # moves: the buffer's sentinel tail left out, and the part of the
+        # output that was dirty behind the live result filled
+        live_b = nb_live if b.numel() else 0
         moved = (n + b.numel() + n_live) * 8
-        whole = (n + b.numel() + C) * 8  # what K1 moves: the tail as well
+        whole = (n + live_b + max(n_live, n)) * 8
         timing[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                              **bound(moved, n + b.numel()))
         print(f"  real-size {label}: n_live={n_live} n_dropped={n_drop} "
-              f"identical; K1 median {ms:.3f} ms, plain twin median "
-              f"{plain_ms:.3f} ms; K1 moves >= {whole / 2**30:.2f} GiB "
-              f"-> {whole / ms / 1e6:.1f} GB/s; bound "
+              f"identical; K1 median {ms:.3f} ms into a reused output "
+              f"({fresh_ms:.3f} ms into a fresh tensor, all {C} slots "
+              f"written), plain twin median {plain_ms:.3f} ms; K1 moves "
+              f"{whole / 1e9:.2f} GB -> {whole / ms / 1e6:.1f} GB/s; bound "
               f"{timing[label]['bound_ms']:.3f} ms for the {moved / 1e9:.2f} "
-              f"GB of the live result ({bound_ms(whole):.3f} ms if all "
-              f"{C} slots count)")
-    del store, buf
+              f"GB of the live result")
+    del store, buf, out
     torch.cuda.empty_cache()
     return err, timing
 
@@ -789,6 +885,7 @@ def phase5_k2_k3(device):
     from sh_assembly_tpu_torch.ops import join_cuda as jc
     from sh_assembly_tpu_torch.ops import merge128_cuda as m3
     from sh_assembly_tpu_torch.ops import spectrum as sp
+    from sh_assembly_tpu_torch.profile import kernels as pk
 
     print("== phase 5: K2 and K3 against their plain versions", flush=True)
     err2 = err3 = 0
@@ -807,8 +904,8 @@ def phase5_k2_k3(device):
               f"cap={args[-1]} -> n_live={int(kern[3])} identical")
 
     timing = {}
-    store, _, n, kb, C = big_case(device)
-    q = k2_big_case(store, n, kb)
+    store, _, n, kb, C = pk.big_case(device)
+    q = pk.probe_keys(store, n, kb, 9 << 24)
     print(f"  K2 real shape: n_main={n} slots={C} key_bits={kb} "
           f"queries={q.numel()}", flush=True)
     err2 = max(err2, _check_k2("real shape", jc.count_join_cuda(
@@ -820,7 +917,7 @@ def phase5_k2_k3(device):
     skeys = bits.srl(store[:n], sp.payload_bits(kb))
     qk = torch.where(q == -1, 0, q)
     library_ms = _time_ms(lambda: torch.searchsorted(skeys, qk), 3)
-    del skeys, qk
+    del qk
     # every query read (8 B) and answered (4 B), the live store read once;
     # a search of log2(n) comparisons for each query
     moved = q.numel() * 12 + n * 8
@@ -832,7 +929,19 @@ def phase5_k2_k3(device):
           f"torch.searchsorted alone {library_ms:.3f} ms; bound "
           f"{timing['count_join']['bound_ms']:.3f} ms for "
           f"{moved / 1e9:.2f} GB")
-    del store, q
+    # the sparse shape beside it: 2^22 probes, 24 store words apart
+    qs = pk.probe_keys(store, n, kb, 1 << 22)
+    err2 = max(err2, _check_k2("sparse shape", jc.count_join_cuda(
+        store, n, qs, kb), jc.count_join_plain(store, n, qs, kb)))
+    sparse_ms = _time_ms(lambda: jc.count_join_cuda(store, n, qs, kb), 7)
+    sparse_lib = _time_ms(lambda: torch.searchsorted(
+        skeys, torch.where(qs == -1, 0, qs)), 3)
+    timing["count_join"].update(sparse_ms=sparse_ms,
+                                sparse_library_ms=sparse_lib)
+    print(f"  K2 sparse shape ({qs.numel()} queries) identical; K2 median "
+          f"{sparse_ms:.3f} ms, torch.searchsorted (with the query "
+          f"clean-up) {sparse_lib:.3f} ms")
+    del store, q, qs, skeys
     torch.cuda.empty_cache()
 
     args = k3_big_case(device)
@@ -858,6 +967,19 @@ def phase5_k2_k3(device):
           f"{timing['merge128']['bound_ms']:.3f} ms for the "
           f"{moved / 1e9:.2f} GB of the live result")
     del args
+    torch.cuda.empty_cache()
+
+    # the profiling entry point for K1 and K2, as a user runs it: the
+    # wrappers' medians and each kernel's device time by name
+    rc, logtxt, wall = _run_main(pk.main, [])
+    rows = [ln.split("] ", 1)[-1] for ln in logtxt.splitlines()
+            if " ms" in ln]
+    if rc != 0 or len(rows) != 11 or "k_merge" not in logtxt or \
+            "k_join_tiles" not in logtxt:
+        raise AssertionError("profile.kernels did not time every row")
+    print(f"  profile.kernels ({wall:.1f} s):")
+    for ln in rows:
+        print(f"    {ln}")
     torch.cuda.empty_cache()
     return err2, err3, timing
 

@@ -232,7 +232,8 @@ def build_spectrum(
     stats.kmers = int(spec.nelts)
     stats.distinct = spec.ndistinct
     stats.seconds = time.time() - t0
-    return spec, stats
+    # counting is over: whoever takes the store needs no second buffer
+    return sp.drop_spare(spec), stats
 
 
 def default_batch_cfg(sizing: cfg.CounterSizing,

@@ -2,7 +2,10 @@
 
 Replaces the TPU kernel ``sh_assembly_tpu/ops/join_pallas.py:
 count_join_planes`` with the hand-written CUDA kernel ``csrc/count_join.cu``
-(its header says what bounds it on the card and how it searches).
+(its header says what bounds it on the card and what the design does about
+it: a partition kernel bounds every tile of queries in the live store, and
+each tile streams its short store range through shared memory, or searches
+device memory inside its range where the range is too wide to fit).
 
 Contract of ``count_join(store, n_main, queries, key_bits)``:
   store:   int64 packed spectrum words ``key << KSHIFT | traveled << CBITS
@@ -40,11 +43,13 @@ def _load():
         from . import _build
 
         lib = _build.load("count_join")
+        lib.count_join_scratch_words.restype = ctypes.c_longlong
+        lib.count_join_scratch_words.argtypes = [ctypes.c_longlong]
         lib.count_join_launch.restype = ctypes.c_int
         lib.count_join_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_longlong,  # store, n_main
             ctypes.c_void_p, ctypes.c_longlong,  # queries, nq
-            ctypes.c_void_p,                     # out
+            ctypes.c_void_p, ctypes.c_void_p,    # out, scratch
             ctypes.c_int,                        # key_bits
             ctypes.c_void_p,                     # stream
         ]
@@ -75,11 +80,15 @@ def count_join_cuda(store: torch.Tensor, n_main: int, queries: torch.Tensor,
     if not 0 <= n_main <= store.numel():
         raise ValueError(f"n_main {n_main} outside the store")
     lib = _load()
-    out = torch.empty(queries.numel(), dtype=torch.int32, device=store.device)
+    nq = queries.numel()
+    out = torch.empty(nq, dtype=torch.int32, device=store.device)
+    # the partition array: one store position per tile boundary
+    scratch = torch.empty(lib.count_join_scratch_words(nq),
+                          dtype=torch.int64, device=store.device)
     stream = torch.cuda.current_stream(store.device).cuda_stream
     rc = lib.count_join_launch(store.data_ptr(), n_main, queries.data_ptr(),
-                               queries.numel(), out.data_ptr(), key_bits,
-                               stream)
+                               nq, out.data_ptr(), scratch.data_ptr(),
+                               key_bits, stream)
     if rc != 0:
         raise RuntimeError(f"count_join kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

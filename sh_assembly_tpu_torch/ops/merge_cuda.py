@@ -2,14 +2,21 @@
 
 Replaces the TPU kernel ``sh_assembly_tpu/ops/merge_pallas.py:merge_planes``
 with the hand-written CUDA kernel ``csrc/merge_dedup.cu`` (its header says
-what bounds it on the card and how the passes are laid out).
+what bounds it on the card and what the design does about it: one pass over
+the inputs with a decoupled look-back across tiles, the buffer's sentinel
+tail left unmerged, the output's tail written only where it is dirty).
 
 Contract of ``merge_dedup(main, buf, n_main, key_bits, drop_singletons,
-capacity)``:
+capacity, out=None, out_dirty=None)``:
   main: int64 store, key-sorted (unsigned order), ``n_main`` live entries
         ``key << KSHIFT | traveled << CBITS | count`` (count >= 1).
   buf:  int64, sorted, entries ``key << KSHIFT`` (count field 0 = one
         buffered occurrence), sentinels (-1) allowed at its tail.
+  out, out_dirty: an int64[capacity] tensor to write the result into (not
+        ``main``), with the caller's promise that ``out[out_dirty:]`` is
+        all sentinel already; only ``out[:max(n_live, out_dirty)]`` is
+        written.  Without ``out`` the result is a fresh tensor whose whole
+        tail is filled.
   Returns (out int64[capacity], n_live, n_dropped): the sorted store with
   one entry per key and a sentinel tail; n_live may exceed capacity (the
   entries past it are lost and ``spectrum.check_overflow_value`` raises);
@@ -50,8 +57,6 @@ def _load():
         from . import _build
 
         lib = _build.load("merge_dedup")
-        lib.merge_dedup_tile.restype = ctypes.c_int
-        lib.merge_dedup_tile.argtypes = []
         lib.merge_dedup_scratch_words.restype = ctypes.c_longlong
         lib.merge_dedup_scratch_words.argtypes = [ctypes.c_longlong]
         lib.merge_dedup_launch.restype = ctypes.c_int
@@ -59,6 +64,7 @@ def _load():
             ctypes.c_void_p, ctypes.c_longlong,  # a, na
             ctypes.c_void_p, ctypes.c_longlong,  # b, nb
             ctypes.c_void_p, ctypes.c_longlong,  # out, out_cap
+            ctypes.c_longlong,                   # out_dirty
             ctypes.c_void_p, ctypes.c_void_p,    # scratch, meta
             ctypes.c_int, ctypes.c_int,          # key_bits, drop
             ctypes.c_void_p,                     # stream
@@ -77,8 +83,28 @@ def _check(t: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} must be a contiguous 1-D int64 tensor")
 
 
+def _output(main: torch.Tensor, capacity: int, out, out_dirty):
+    """The tensor a merge writes into and the extent of it that may hold
+    something else than sentinels: the caller's, checked, or a fresh one."""
+    if out is None:
+        if out_dirty is not None:
+            raise ValueError("out_dirty given without out")
+        return torch.empty(capacity, dtype=torch.int64,
+                           device=main.device), capacity
+    _check(out, "out")
+    if out.numel() != capacity or out.device != main.device:
+        raise ValueError("out must hold capacity words on main's device")
+    if out.data_ptr() == main.data_ptr():
+        raise ValueError("out must not be the main store")
+    if out_dirty is None or not 0 <= out_dirty <= capacity:
+        raise ValueError(f"out_dirty {out_dirty} outside [0, capacity]")
+    return out, out_dirty
+
+
 def merge_dedup_cuda(main: torch.Tensor, buf: torch.Tensor, n_main: int,
-                     key_bits: int, drop_singletons: bool, capacity: int):
+                     key_bits: int, drop_singletons: bool, capacity: int,
+                     out: torch.Tensor | None = None,
+                     out_dirty: int | None = None):
     """Launch K1 on the current CUDA stream (see module docstring)."""
     global LAUNCHES
     _geometry(key_bits)
@@ -88,20 +114,18 @@ def merge_dedup_cuda(main: torch.Tensor, buf: torch.Tensor, n_main: int,
         raise ValueError("merge_dedup_cuda needs both inputs on one GPU")
     if not 0 <= n_main <= main.numel():
         raise ValueError(f"n_main {n_main} outside the main store")
+    out, out_dirty = _output(main, capacity, out, out_dirty)
     lib = _load()
     dev = main.device
-    n = n_main + buf.numel()
-    tile = lib.merge_dedup_tile()
-    ntiles = -(-n // tile)
-    scratch = torch.empty(lib.merge_dedup_scratch_words(ntiles),
+    # tile descriptors and co-ranks; the launch zeroes what it must
+    scratch = torch.empty(lib.merge_dedup_scratch_words(n_main + buf.numel()),
                           dtype=torch.int64, device=dev)
-    meta = torch.zeros(2, dtype=torch.int64, device=dev)
-    out = torch.empty(capacity, dtype=torch.int64, device=dev)
+    meta = torch.empty(2, dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.merge_dedup_launch(
         main.data_ptr(), n_main, buf.data_ptr(), buf.numel(),
-        out.data_ptr(), capacity, scratch.data_ptr(), meta.data_ptr(),
-        key_bits, int(bool(drop_singletons)), stream)
+        out.data_ptr(), capacity, out_dirty, scratch.data_ptr(),
+        meta.data_ptr(), key_bits, int(bool(drop_singletons)), stream)
     if rc != 0:
         raise RuntimeError(f"merge_dedup kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
@@ -109,7 +133,9 @@ def merge_dedup_cuda(main: torch.Tensor, buf: torch.Tensor, n_main: int,
 
 
 def merge_dedup_plain(main: torch.Tensor, buf: torch.Tensor, n_main: int,
-                      key_bits: int, drop_singletons: bool, capacity: int):
+                      key_bits: int, drop_singletons: bool, capacity: int,
+                      out: torch.Tensor | None = None,
+                      out_dirty: int | None = None):
     """Pure-torch twin of K1 on any device.
 
     Follows the JAX package's XLA merge: one sort of the concatenation
@@ -120,11 +146,11 @@ def merge_dedup_plain(main: torch.Tensor, buf: torch.Tensor, n_main: int,
     """
     kshift, cb, cap = _geometry(key_bits)
     dev = main.device
+    out, out_dirty = _output(main, capacity, out, out_dirty)
     packed = bits.usort(torch.cat([main[:n_main], buf]))
-    out = torch.full((capacity,), bits.SENTINEL, dtype=torch.int64,
-                     device=dev)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     if packed.numel() == 0:
+        out[:out_dirty] = bits.SENTINEL
         return out, zero, zero
     sent = packed == bits.SENTINEL
     # sentinels keep the all-ones key, so they never share a run with a
@@ -152,14 +178,15 @@ def merge_dedup_plain(main: torch.Tensor, buf: torch.Tensor, n_main: int,
     n_live = surv.numel()
     m = min(n_live, capacity)
     out[:m] = surv[:m]
+    out[m:out_dirty] = bits.SENTINEL
     return out, torch.tensor(n_live, dtype=torch.int64, device=dev), n_dropped
 
 
 def merge_dedup(main: torch.Tensor, buf: torch.Tensor, n_main: int,
-                key_bits: int, drop_singletons: bool, capacity: int):
+                key_bits: int, drop_singletons: bool, capacity: int,
+                out: torch.Tensor | None = None,
+                out_dirty: int | None = None):
     """K1 for CUDA tensors, its plain twin for CPU tensors."""
-    if main.is_cuda:
-        return merge_dedup_cuda(main, buf, n_main, key_bits,
-                                drop_singletons, capacity)
-    return merge_dedup_plain(main, buf, n_main, key_bits, drop_singletons,
-                             capacity)
+    fn = merge_dedup_cuda if main.is_cuda else merge_dedup_plain
+    return fn(main, buf, n_main, key_bits, drop_singletons, capacity, out,
+              out_dirty)

@@ -19,7 +19,10 @@ A batch insert is a pure append; when the buffer fills, the buffer prefix
 is sorted (``torch.sort``, as the JAX package leaves it to XLA) and folded
 into the store by kernel K1 (``ops/merge_cuda``), which segment-reduces
 duplicate keys.  The deNoise sweep is K1 with an empty buffer and
-``drop_singletons``.
+``drop_singletons``.  A fold writes into a second buffer, the ``spare``,
+and the store it read becomes the next spare, so no fold allocates a store
+or rewrites a sentinel tail that is already clean.  A Spectrum from before
+a fold stays readable until the fold after it, which overwrites its store.
 
 Off the hot path: the traveled queries mark and read the traveled bit by
 binary search, and the set operations (``union``, ``intersect``,
@@ -51,6 +54,10 @@ class Spectrum:
     n_buf: int  # live entries in the buffer
     ndistinct: int  # distinct keys (exact right after a merge)
     nelts: torch.Tensor  # int64[] total occurrences inserted (device)
+    # the buffer the next fold writes into (None: the fold makes one);
+    # spare[spare_dirty:] is all sentinel
+    spare: torch.Tensor | None = None
+    spare_dirty: int = 0
 
     @property
     def capacity(self) -> int:
@@ -145,16 +152,27 @@ def sort_pack_buf(buf: torch.Tensor, key_bits: int) -> torch.Tensor:
 def _fold(spec: Spectrum, sorted_buf: torch.Tensor, key_bits: int,
           drop_singletons: bool) -> Spectrum:
     n_main = min(spec.n_main, spec.capacity)
+    # without a spare the merge makes the second buffer, tail and all
+    into = {} if spec.spare is None else dict(out=spec.spare,
+                                              out_dirty=spec.spare_dirty)
     out, n_live, n_dropped = merge_cuda.merge_dedup(
         spec.store, sorted_buf, n_main, key_bits, drop_singletons,
-        spec.capacity)
+        spec.capacity, **into)
     n = int(n_live)  # one host sync per merge
     return Spectrum(
         store=out, buf=spec.buf, n_main=n, n_buf=0, ndistinct=n,
         # each dropped singleton run was one occurrence (the reference's
         # nelts bookkeeping of qf_clean_singleton)
         nelts=spec.nelts - n_dropped,
+        # the store just read is sentinel beyond its live entries
+        spare=spec.store, spare_dirty=n_main,
     )
+
+
+def drop_spare(spec: Spectrum) -> Spectrum:
+    """The same Spectrum without its spare buffer (frees its memory once no
+    earlier Spectrum holds it as its store)."""
+    return dataclasses.replace(spec, spare=None, spare_dirty=0)
 
 
 def merge(spec: Spectrum, key_bits: int,

@@ -90,11 +90,12 @@ def test_port_runs_without_jax(workload, tmp_path):  # noqa: F811
         # the tools and the library surface off the main path
         from sh_assembly_tpu_torch.cli import compare_contigs, cqf_dump, minia
         from sh_assembly_tpu_torch.ops import blocksort_cuda, spectrum
-        from sh_assembly_tpu_torch.profile import blocksort, sort
+        from sh_assembly_tpu_torch.profile import blocksort, kernels, sort
         assert cqf_dump.main([{str(out)!r}, "--meta-only"]) == 0
         assert blocksort.main(["--device", "cpu", "--log2-n", "12",
                                "--log2-w", "8"]) == 0
         assert sort.main(["--device", "cpu", "--log2-n", "12"]) == 0
+        assert kernels.main(["--device", "cpu", "--log2-capacity", "12"]) == 0
         a = spectrum.from_host([1, 2, 3], [4, 5, 6], 8, 8, 30, device="cpu")
         assert int(spectrum.inner_product(a, spectrum.union(a, a, 30), 30)) \
             == 2 * (16 + 25 + 36)

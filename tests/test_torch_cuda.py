@@ -47,6 +47,44 @@ def test_k1_matches_plain_twin(gpu):
     assert n > 20
 
 
+def test_k1_chain_on_reused_buffers_matches_plain_twin(gpu):
+    """Folds chained on one pair of buffers (merge, merge, a sweep that
+    shrinks the store, merge, an overflow, a merge after it): the whole
+    capacity equals the twin's fresh output after every step."""
+    before = merge_cuda.LAUNCHES
+    steps = list(zip(
+        chip_smoke.k1_chain(gpu, merge_cuda.merge_dedup, reuse=True),
+        chip_smoke.k1_chain(gpu, merge_cuda.merge_dedup_plain, reuse=False)))
+    assert merge_cuda.LAUNCHES == before + len(steps) == before + 6
+    for (name, out, n_live, n_drop), (_, want, n_want, d_want) in steps:
+        assert (n_live, n_drop) == (n_want, d_want), name
+        assert torch.equal(out, want), name
+    counts = [s[0][2] for s in steps]
+    C = chip_smoke.K1_CHAIN["capacity"]
+    assert counts[2] < counts[1] and counts[4] > C >= counts[5]
+
+
+def test_k1_writes_nothing_at_or_beyond_the_clean_extent(gpu):
+    chip_smoke.k1_poisoned_output(gpu, merge_cuda.merge_dedup)
+
+
+def test_k1_k2_refuse_what_the_kernels_do_not_take(gpu):
+    store = torch.full((64,), -1, dtype=torch.int64, device=gpu)
+    out = torch.full((64,), -1, dtype=torch.int64, device=gpu)
+    before = (merge_cuda.LAUNCHES, join_cuda.LAUNCHES)
+    for kw in (dict(out=out), dict(out=out, out_dirty=65),
+               dict(out=store, out_dirty=0), dict(out=out.cpu(), out_dirty=0)):
+        with pytest.raises(ValueError):
+            merge_cuda.merge_dedup(store, store[:0], 0, 30, False, 64, **kw)
+    # the CUDA wrappers never fall back to the plain versions
+    with pytest.raises(ValueError):
+        merge_cuda.merge_dedup_cuda(store.cpu(), store[:0].cpu(), 0, 30,
+                                    False, 64)
+    with pytest.raises(ValueError):
+        join_cuda.count_join_cuda(store.cpu(), 0, store[:8].cpu(), 30)
+    assert (merge_cuda.LAUNCHES, join_cuda.LAUNCHES) == before
+
+
 def test_build_spectrum_cuda_matches_cpu(gpu):
     rng = np.random.default_rng(5)
     genome = rng.integers(0, 4, size=3000).astype(np.uint8)
@@ -69,6 +107,7 @@ def test_build_spectrum_cuda_matches_cpu(gpu):
         spec, stats = counter.build_spectrum(
             iter(batches), sizing, capacity=1 << 15, buf_capacity=1 << 12,
             batch_cfg=bc, device=dev)
+        assert spec.spare is None  # counting hands on one buffer only
         out[str(dev)] = (sp.to_host(spec, 22), stats)
     (hc, sc), (hg, sg) = out["cpu"], out[str(gpu)]
     assert sc.sweeps >= 2 and sc.merges > 3
@@ -87,7 +126,9 @@ def test_k2_matches_plain(gpu):
         want = join_cuda.count_join_plain(store, n_main, q, kb)
         assert torch.equal(got, want), name
         n += 1
-    assert n >= 10
+    # among them: tiles with a wide, an empty and a boundary-aligned store
+    # range, duplicate queries, unaligned views
+    assert n >= 17
 
 
 def test_k3_matches_plain(gpu):

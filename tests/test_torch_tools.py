@@ -17,6 +17,7 @@ from sh_assembly_tpu_torch.cli import compare_contigs, cqf_dump, minia
 from sh_assembly_tpu_torch.cli import pipeline as pipeline_cli
 from sh_assembly_tpu_torch.ops import bits
 from sh_assembly_tpu_torch.profile import blocksort as pblocksort
+from sh_assembly_tpu_torch.profile import kernels as pkernels
 from sh_assembly_tpu_torch.profile import sort as psort
 
 K = 21
@@ -131,6 +132,30 @@ def test_profile_sort_main_on_cpu(capsys):
         psort.main(["--device", "cpu", "--log2-n", "11"])
 
 
+def test_profile_kernels_main_on_cpu(capsys):
+    """K1 and K2 at a CPU size: every row is timed, into a fresh and a
+    reused output, and the generated state is what the rows say."""
+    assert pkernels.main(["--device", "cpu", "--log2-capacity", "14"]) == 0
+    err = capsys.readouterr().err
+    for row in ("K1 merge, fresh output", "K1 merge, reused output",
+                "K1 sweep, fresh output", "K1 sweep, reused output",
+                "K2 4608 probes", "K2 128 probes", "K2 8 probes",
+                "K2 8192 probes", "torch.searchsorted 4608 probes"):
+        assert row in err, row
+    store, buf, n, kb, C = pkernels.big_case("cpu", n_live=3000, n_buf=4096,
+                                             capacity=1 << 14)
+    assert C == 1 << 14 and kb == 37 and 2900 < n <= 3000
+    live = store[:n]
+    assert bool((bits.flip(live)[1:] > bits.flip(live)[:-1]).all())
+    assert bool((store[n:] == -1).all())
+    assert bool((bits.flip(buf)[1:] >= bits.flip(buf)[:-1]).all())
+    q = pkernels.probe_keys(store, n, kb, 640)
+    assert q.numel() == 640 and bool((q[-10:] == -1).all())
+    assert bool((q[1:630] >= q[:629]).all())
+    res = pkernels.run(torch.device("cpu"), 14)
+    assert all(v > 0 for v in res.values())
+
+
 def test_profile_sort_variants_sort():
     """Every variant's output against numpy on the script's own input."""
     hi_np, lo_np = psort.make_input(12)
@@ -156,7 +181,7 @@ def test_profile_sort_variants_sort():
         | u32(out["G"][1]), np.sort(word.reshape(256, -1), axis=1))
 
 
-@pytest.mark.parametrize("mod", [pblocksort, psort])
+@pytest.mark.parametrize("mod", [pblocksort, psort, pkernels])
 def test_profile_main_refuses_cuda_without_gpu(mod, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
