@@ -33,11 +33,17 @@ exits non-zero without printing a result:
      tests, empty and all-matching inputs, the maximum key, traveled
      entries, sentinels, tiles of queries whose store range is wide,
      empty or ends on a tile boundary, duplicate queries, tensors that are
-     not 16-byte aligned, k = 62 poly-T k-mers, an overflowing fold, and
-     one call each at the main path's real shape (9 x 2^24 probes against
-     phase 2's 100 M-entry store, and 2^22 probes, a sparse shape, beside
-     them; a 12 M-entry node store against 2^22 survivors), timed against
-     the plain versions; then the profiling entry point for K1 and K2
+     not 16-byte aligned, k = 62 poly-T k-mers, an overflowing fold;
+     for K3 also a stream of nothing but sentinels, of one k-mer, runs of
+     one k-mer across several tiles with the seeded copy in either
+     stream, views at odd offsets, a flush at a small size (30 copies a
+     k-mer, a long sentinel tail) and a chain of folds on one store
+     (growing, resting, overflowing); and calls at the main path's real shapes (9 x 2^24 probes against phase 2's
+     100 M-entry store, and 2^22 probes, a sparse shape, beside them; for
+     K3 the shape a flush hands it, a 12.1 M-entry node store against
+     59.8 M sorted candidates, the same candidates against an empty
+     store, and a small shape of 2^22 candidates), timed against the
+     plain versions; then the profiling entry point for all four kernels
      (profile.kernels.main), which times the wrappers and each of their
      kernels by name.
   6. parity: the pipeline CLI (reads -> unitigs -> contigs) on the bench's
@@ -53,9 +59,12 @@ exits non-zero without printing a result:
      library must load.
 
   8. K4 (window sort) against its plain PyTorch version on the card,
-     bitwise: windows of 2^7 to 2^17 values, several each, with random
-     values over the whole u32 range, all equal, sorted, reversed and only
-     0 and 0xFFFFFFFF; then the profiling entry point
+     bitwise: windows of 2^7 to 2^19 values (several windows in a block,
+     one window in a block, in a cluster of two and of four blocks, and
+     above the cluster's reach), several each and once more windows than
+     clusters fit on the card, with random values over the whole u32
+     range, all equal, sorted, reversed and only 0 and 0xFFFFFFFF; then
+     the profiling entry point
      (profile.blocksort.main) at its real shape, 2^27 values in windows of
      2^17, timed against the plain torch.sort rows, and the buffer-sort
      yardsticks of profile.sort.main (variants A-H at 2^27 keys).
@@ -78,7 +87,8 @@ take, computed from this run's shapes and results: the larger of the
 bytes moved (each input read once, the live result written once) over
 HBM_BYTES_PER_S and the key comparisons over OPS_PER_S; K2's entry also
 has its time at the sparse shape (sparse_ms) beside torch.searchsorted's
-there (sparse_library_ms).  Work files go to
+there (sparse_library_ms), K3's its times at the small shape (small_ms)
+and against an empty store (empty_ms, empty_bound_ms).  Work files go to
 build/chip_smoke/ (ignored by git) and are removed at the end.
 """
 
@@ -461,55 +471,95 @@ def k3_cases(device):
     bh, bl, bf = _k3_stream(device, b_hi, b_lo, rng.random(206) < 0.5, 20)
     yield "k62_polyT", ah, al, af, 304, bh, bl, bf, 512
 
+    # a stream b of nothing but sentinels; of nothing but one k-mer, stored
+    # (unseeded) or not, one copy in b seeded
+    yield case("b_all_sentinels", 11, 47, 3000, 0, 0.0, pad=5000)
+    rng = np.random.default_rng(12)
+    hi, lo = _rand_kmers(rng, 3001, 47)
+    for label, x in (("stored", 1500), ("new", 3000)):
+        seed = np.zeros(10_000, bool)
+        seed[7777] = True
+        a_s = _k3_stream(device, hi[:3000], lo[:3000], np.zeros(3000, bool),
+                         64)
+        b_s = _k3_stream(device, np.full(10_000, hi[x]),
+                         np.full(10_000, lo[x]), seed, 100)
+        yield (f"b_one_kmer_{label}", *a_s, 3000, *b_s, 3064)
+    # one k-mer's run across several tiles and across both streams, the
+    # only seeded copy in a or in b
+    for where in ("a", "b"):
+        a_hi = np.concatenate([hi[:500], np.full(4000, hi[700])])
+        a_lo = np.concatenate([lo[:500], np.full(4000, lo[700])])
+        b_hi = np.concatenate([hi[400:900], np.full(6000, hi[700])])
+        b_lo = np.concatenate([lo[400:900], np.full(6000, lo[700])])
+        a_seed, b_seed = np.zeros(4500, bool), np.zeros(6500, bool)
+        (a_seed if where == "a" else b_seed)[-1] = True
+        a_s = _k3_stream(device, a_hi, a_lo, a_seed, 100)
+        b_s = _k3_stream(device, b_hi, b_lo, b_seed, 300)
+        yield (f"run_across_tiles_seed_in_{where}", *a_s, 4500, *b_s, 6000)
+    # views that start one entry into their tensors: hi and lo 8 bytes,
+    # the flags 1 byte off any wider alignment
+    name, ah, al, af, na, bh, bl, bf, cap = case("unaligned_views", 13, 47,
+                                                 30_000, 50_000, 0.5,
+                                                 pad=3000, rep=3)
+    yield (name, ah[1:], al[1:], af[1:], na - 1, bh[1:], bl[1:], bf[1:],
+           cap)
+    # a flush at a small size: 30 copies of every distinct k-mer, most of
+    # them stored already, a sentinel tail of a fifth of the stream
+    from sh_assembly_tpu_torch.profile import kernels as pk
 
-def k3_big_case(device, n_store=12_000_000, cap=1 << 24, n_b=1 << 22,
-                k=47, seed=9):
-    """One node-store fold at the main path's real shape, generated on the
-    card: a 2^24-slot store with ~12 M live k-mers against 2^22 sorted
-    survivors, half of them stored k-mers, a quarter sentinels."""
+    yield ("flush_30x", *pk.k3_flush_case(
+        device, n_store=20_000, cap=1 << 15, n_b=100_000, n_solid=81_000,
+        n_distinct=2_700, n_hit=2_400))
+
+
+K3_CHAIN = dict(k=47, capacity=30_000)
+
+
+def k3_chain(device, merge, seed=33):
+    """A chain of folds on one node store through ``merge`` (K3's wrapper
+    or its plain version): the first into an empty store, two that grow
+    it, one with next to nothing new, one that overflows it, one after the
+    overflow.  Yields (name, the whole (hi, lo, nflag) output, n_live)
+    after every step."""
     import torch
 
-    from sh_assembly_tpu_torch.ops import kmerpack as kp
+    cap = K3_CHAIN["capacity"]
+    rng = np.random.default_rng(seed)
+    hi, lo = _rand_kmers(rng, 60_000, K3_CHAIN["k"])
 
-    g = torch.Generator(device=device).manual_seed(seed)
+    def block(n, pool, pad):
+        pick = rng.integers(0, pool, size=n)
+        return _k3_stream(device, hi[pick], lo[pick], rng.random(n) < 0.05,
+                          pad)
 
-    def rand_words(n):
-        return torch.randint(-(1 << 63), (1 << 63) - 1, (n,), generator=g,
-                             device=device)
-
-    lo_mask = ~((1 << (128 - 2 * k)) - 1)
-    hi, lo = rand_words(n_store), rand_words(n_store) & lo_mask
-    perm = kp.sort_pairs(hi, lo)
-    a_hi = torch.full((cap,), -1, dtype=torch.int64, device=device)
-    a_lo = torch.full((cap,), -1, dtype=torch.int64, device=device)
-    a_nf = torch.ones(cap, dtype=torch.uint8, device=device)
-    a_hi[:n_store], a_lo[:n_store] = hi[perm], lo[perm]
-    a_nf[:n_store] = (torch.rand(n_store, generator=g, device=device)
-                      > 0.1).to(torch.uint8)
-    n_hit, n_sent = n_b // 2, n_b // 4
-    pick = torch.randint(0, n_store, (n_hit,), generator=g, device=device)
-    n_new = n_b - n_hit - n_sent
-    b_hi = torch.cat([hi[pick], rand_words(n_new),
-                      torch.full((n_sent,), -1, dtype=torch.int64,
-                                 device=device)])
-    b_lo = torch.cat([lo[pick], rand_words(n_new) & lo_mask,
-                      torch.full((n_sent,), -1, dtype=torch.int64,
-                                 device=device)])
-    b_nf = (torch.rand(n_b, generator=g, device=device) > 0.1).to(torch.uint8)
-    b_nf[n_b - n_sent:] = 1
-    perm = kp.sort_pairs(b_hi, b_lo, b_nf)
-    return (a_hi, a_lo, a_nf, n_store, b_hi[perm].contiguous(),
-            b_lo[perm].contiguous(), b_nf[perm].contiguous(), cap)
+    steps = [("first", block(30_000, 8_000, 4_000)),
+             ("grow1", block(30_000, 12_000, 100)),
+             ("grow2", block(20_000, 20_000, 9_000)),
+             ("few_news", block(5_000, 8_000, 0)),
+             ("overflow", block(40_000, 60_000, 500)),
+             ("after_overflow", block(3_000, 60_000, 7))]
+    store = (torch.full((cap,), -1, dtype=torch.int64, device=device),
+             torch.full((cap,), -1, dtype=torch.int64, device=device),
+             torch.ones(cap, dtype=torch.uint8, device=device))
+    n = 0
+    for name, b in steps:
+        *out, n_live = merge(*store, n, *b, cap)
+        yield name, tuple(out), int(n_live)
+        store, n = tuple(out), min(int(n_live), cap)
 
 
 def k4_cases(device):
     """(name, x, W) tuples for K4: int32 tensors carrying u32 patterns,
-    made from numpy seeds.  The window counts leave ragged last chunks
-    where the window is below the kernel's shared-memory chunk (2^13)."""
+    made from numpy seeds.  The window counts leave a ragged last block
+    where the window is below the 2^15 words a block holds; windows of
+    2^15 fill a block, of 2^16 and 2^17 a cluster of two and four, and
+    larger ones also take passes over device memory; 35 windows of 2^17
+    are more clusters than an H100 holds at once."""
     import torch
 
     for log2_w, g in ((7, 5), (7, 200), (10, 7), (10, 19), (13, 1), (13, 5),
-                      (15, 3), (17, 2)):
+                      (15, 3), (17, 2), (16, 3), (18, 3), (19, 2),
+                      (17, 35)):
         W = 1 << log2_w
         rng = np.random.default_rng(log2_w * 1000 + g)
         x = rng.integers(0, 1 << 32, size=g * W,
@@ -944,38 +994,87 @@ def phase5_k2_k3(device):
     del store, q, qs, skeys
     torch.cuda.empty_cache()
 
-    args = k3_big_case(device)
-    print(f"  K3 real shape: na={args[3]} cap={args[-1]} "
-          f"nb={args[4].numel()}", flush=True)
+    # a chain of folds on one store against the plain version: the whole
+    # capacity after every step
+    counts = []
+    for (name, kern, nk), (_, plain, np_) in zip(
+            k3_chain(device, m3.merge128_cuda),
+            k3_chain(device, m3.merge128_plain)):
+        err3 = max(err3, _check_k3(f"chain {name}", (*kern, nk),
+                                   (*plain, np_)))
+        counts.append(nk)
+        print(f"  K3 chain {name}: n_live={nk} identical over all "
+              f"{K3_CHAIN['capacity']} slots")
+    if not (counts[0] < counts[1] < counts[2] <= counts[3] < counts[2] + 100
+            and counts[4] > K3_CHAIN["capacity"]):
+        raise AssertionError(f"the K3 chain does not grow, rest and "
+                             f"overflow: {counts}")
+
+    # K3 at the shape a flush hands it; against an empty store; at the
+    # small shape
+    flush = pk.k3_flush_case(device)
+    cap = flush[-1]
+    nb_live = int(((flush[4] != -1) | (flush[5] != -1)).sum())
+    for label, args in (("flush shape", flush),
+                        ("empty store", (*flush[:3], 0, *flush[4:]))):
+        na = args[3]
+        print(f"  K3 {label}: na={na} cap={cap} nb={args[4].numel()} "
+              f"({nb_live} before the sentinel tail)", flush=True)
+        kern = m3.merge128_cuda(*args)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        plain = m3.merge128_plain(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t0) * 1e3  # once: three sorts of 72 M
+        err3 = max(err3, _check_k3(label, kern, plain))
+        n_live = int(kern[3])
+        del kern, plain
+        ms = _time_ms(lambda: m3.merge128_cuda(*args), 7)
+        # 17 B an entry (hi, lo, flag): the live store and the candidates
+        # before the stream's sentinel tail read, the live result written
+        # (as for K1, not the output's sentinel tail).  The tail is found
+        # by a search and is no part of the function's work.  Two word
+        # comparisons for each entry read
+        n_in = na + nb_live
+        moved = (n_in + n_live) * 17
+        t = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                 **bound(moved, 2 * n_in))
+        if label == "flush shape":
+            timing["merge128"] = t
+        else:
+            timing["merge128"].update(empty_ms=ms,
+                                      empty_bound_ms=t["bound_ms"])
+        print(f"  K3 {label}: n_live={n_live} identical; K3 median {ms:.3f} "
+              f"ms, plain version {plain_ms:.3f} ms (one call); bound "
+              f"{t['bound_ms']:.3f} ms for {moved / 1e9:.2f} GB (the store, "
+              f"the candidates before the tail, the live result) -> "
+              f"{moved / ms / 1e6:.1f} GB/s")
+    del flush, args
+    torch.cuda.empty_cache()
+    args = pk.k3_big_case(device)
     kern = m3.merge128_cuda(*args)
-    err3 = max(err3, _check_k3("real shape", kern, m3.merge128_plain(*args)))
+    err3 = max(err3, _check_k3("small shape", kern, m3.merge128_plain(*args)))
     n_live = int(kern[3])
     del kern
-    ms = _time_ms(lambda: m3.merge128_cuda(*args), 7)
-    plain_ms = _time_ms(lambda: m3.merge128_plain(*args), 3)
-    # 17 B an entry (hi, lo, flag): the live store and the survivors read
-    # and the live result written (as for K1, not the sentinel tail); two
-    # word comparisons for each entry read
-    n_in = args[3] + args[4].numel()
-    moved = (n_in + n_live) * 17
-    whole = (n_in + args[-1]) * 17  # what K3 moves: the tail as well
-    timing["merge128"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-                              **bound(moved, 2 * n_in))
-    print(f"  K3 real shape: n_live={n_live} identical; K3 median {ms:.3f} "
-          f"ms, plain median {plain_ms:.3f} ms; K3 moves >= "
-          f"{whole / 2**30:.2f} GiB -> {whole / ms / 1e6:.1f} GB/s; bound "
-          f"{timing['merge128']['bound_ms']:.3f} ms for the "
-          f"{moved / 1e9:.2f} GB of the live result")
+    small_ms = _time_ms(lambda: m3.merge128_cuda(*args), 7)
+    small_plain = _time_ms(lambda: m3.merge128_plain(*args), 3)
+    moved = (args[3] + args[4].numel() + n_live) * 17
+    timing["merge128"].update(small_ms=small_ms, small_plain_ms=small_plain,
+                              small_bound_ms=bound_ms(moved))
+    print(f"  K3 small shape: na={args[3]} nb={args[4].numel()} "
+          f"n_live={n_live} identical; K3 median {small_ms:.3f} ms, "
+          f"plain median {small_plain:.3f} ms; bound "
+          f"{bound_ms(moved):.3f} ms for {moved / 1e9:.2f} GB")
     del args
     torch.cuda.empty_cache()
 
-    # the profiling entry point for K1 and K2, as a user runs it: the
-    # wrappers' medians and each kernel's device time by name
+    # the profiling entry point for the four kernels, as a user runs it:
+    # the wrappers' medians and each kernel's device time by name
     rc, logtxt, wall = _run_main(pk.main, [])
     rows = [ln.split("] ", 1)[-1] for ln in logtxt.splitlines()
             if " ms" in ln]
-    if rc != 0 or len(rows) != 11 or "k_merge" not in logtxt or \
-            "k_join_tiles" not in logtxt:
+    if rc != 0 or len(rows) != 16 or not all(
+            k in logtxt for k in ("k_merge", "k_join_tiles", "k_sort")):
         raise AssertionError("profile.kernels did not time every row")
     print(f"  profile.kernels ({wall:.1f} s):")
     for ln in rows:
@@ -1174,7 +1273,7 @@ def phase8_k4(device):
                 f"{int((kern != plain).sum())} of {x.numel()} values differ")
         err = max(err, _max_abs([(kern, plain)]))
         n += 1
-    print(f"  {n} cases (windows 2^7..2^17; random, equal, sorted, reversed, "
+    print(f"  {n} cases (windows 2^7..2^19; random, equal, sorted, reversed, "
           f"extremes) identical")
     bs.LAUNCHES = 0
     _, logtxt, _ = _run_main(prof.main, [])  # its own checks raise

@@ -2,8 +2,10 @@
 
 Replaces the TPU kernel ``profile_blocksort.py:63 block_sort`` with the
 hand-written CUDA kernel ``csrc/block_sort.cu`` (its header says what
-bounds it on the card and how the bitonic network is split between shared
-and device memory).
+bounds it on the card and how a window's bitonic network runs on chip: a
+window of up to 2^17 values in the shared memory of a thread block cluster,
+five stages in registers for every trip through shared memory; larger
+windows add passes over device memory).
 
 Contract of ``block_sort(x, W)``:
   x: a contiguous 1-D int32 tensor carrying u32 bit patterns (the

@@ -2,7 +2,7 @@
 
 Replaces the TPU kernel ``sh_assembly_tpu/ops/merge128_pallas.py:
 merge128_planes`` with the hand-written CUDA kernel ``csrc/merge128.cu``
-(its header says what bounds it on the card and how the passes are laid
+(its header says what bounds it on the card and how its one pass is laid
 out).
 
 Contract of ``merge128(a_hi, a_lo, a_nf, na, b_hi, b_lo, b_nf, cap)``:
@@ -11,11 +11,13 @@ Contract of ``merge128(a_hi, a_lo, a_nf, na, b_hi, b_lo, b_nf, cap)``:
        allowed (they sort last and are dropped).
   hi/lo are int64 holding the unsigned words of a left-aligned packed
   k-mer, ordered unsigned; nflag is uint8, the inverted seed flag (0 =
-  seed).  Returns (hi, lo, nflag, n_live): the union sorted by (hi, lo)
-  with one entry per k-mer, the first copy under (hi, lo, nflag) order (so
-  seed flags are ORed), a sentinel tail (nflag 1) to ``cap``, and n_live
-  as a 0-dim int64 device tensor.  n_live may exceed ``cap``: the entries
-  past it are not kept, and the caller raises.
+  seed).  Returns (hi, lo, nflag, n_live) in fresh tensors: the union
+  sorted by (hi, lo) with one entry per k-mer, the first copy under (hi,
+  lo, nflag) order (so seed flags are ORed), a sentinel tail (nflag 1) to
+  ``cap``, and n_live as a 0-dim int64 device tensor.  n_live may exceed
+  ``cap``: the entries past it are not kept, and the caller raises.
+  The inputs may be views at any offset: the kernel takes its 16-byte
+  paths where the addresses allow and narrower ones elsewhere.
 
 CUDA tensors launch the kernel, and any failure raises.  CPU tensors take
 ``merge128_plain``, the JAX package's sort fold (contiger.py:244-260) in
@@ -43,10 +45,10 @@ def _load():
         from . import _build
 
         lib = _build.load("merge128")
-        lib.merge128_tile.restype = ctypes.c_int
-        lib.merge128_tile.argtypes = []
         lib.merge128_scratch_words.restype = ctypes.c_longlong
         lib.merge128_scratch_words.argtypes = [ctypes.c_longlong]
+        lib.merge128_nlive_word.restype = ctypes.c_int
+        lib.merge128_nlive_word.argtypes = []
         lib.merge128_launch.restype = ctypes.c_int
         lib.merge128_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # a hi/lo/nf
@@ -55,7 +57,7 @@ def _load():
             ctypes.c_longlong,                                  # nb
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # out
             ctypes.c_longlong,                                  # cap
-            ctypes.c_void_p, ctypes.c_void_p,                   # scratch, meta
+            ctypes.c_void_p,                                    # scratch
             ctypes.c_void_p,                                    # stream
         ]
         _lib = lib
@@ -82,30 +84,30 @@ def merge128_cuda(a_hi, a_lo, a_nf, na: int, b_hi, b_lo, b_nf, cap: int):
     _check_stream(a_hi, a_lo, a_nf, "a")
     _check_stream(b_hi, b_lo, b_nf, "b")
     dev = a_hi.device
-    if not all(t.is_cuda and t.device == dev
-               for t in (a_hi, a_lo, a_nf, b_hi, b_lo, b_nf)):
+    inputs = (a_hi, a_lo, a_nf, b_hi, b_lo, b_nf)
+    if not all(t.is_cuda and t.device == dev for t in inputs):
         raise ValueError("merge128_cuda needs all inputs on one GPU")
     if not 0 <= na <= a_hi.numel():
         raise ValueError(f"na {na} outside stream a")
-    lib = _load()
-    nb = b_hi.numel()
-    ntiles = -(-(na + nb) // lib.merge128_tile())
-    scratch = torch.empty(lib.merge128_scratch_words(ntiles),
-                          dtype=torch.int64, device=dev)
-    meta = torch.zeros(1, dtype=torch.int64, device=dev)
     o_hi = torch.empty(cap, dtype=torch.int64, device=dev)
     o_lo = torch.empty(cap, dtype=torch.int64, device=dev)
     o_nf = torch.empty(cap, dtype=torch.uint8, device=dev)
+    lib = _load()
+    nb = b_hi.numel()
+    # header (tile counter, n_live), tile descriptors and co-ranks in one
+    # tensor; the launch zeroes what it must
+    scratch = torch.empty(lib.merge128_scratch_words(na + nb),
+                          dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.merge128_launch(
         a_hi.data_ptr(), a_lo.data_ptr(), a_nf.data_ptr(), na,
         b_hi.data_ptr(), b_lo.data_ptr(), b_nf.data_ptr(), nb,
         o_hi.data_ptr(), o_lo.data_ptr(), o_nf.data_ptr(), cap,
-        scratch.data_ptr(), meta.data_ptr(), stream)
+        scratch.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"merge128 kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
-    return o_hi, o_lo, o_nf, meta[0]
+    return o_hi, o_lo, o_nf, scratch[lib.merge128_nlive_word()]
 
 
 def merge128_plain(a_hi, a_lo, a_nf, na: int, b_hi, b_lo, b_nf, cap: int):
@@ -137,6 +139,5 @@ def merge128_plain(a_hi, a_lo, a_nf, na: int, b_hi, b_lo, b_nf, cap: int):
 
 def merge128(a_hi, a_lo, a_nf, na: int, b_hi, b_lo, b_nf, cap: int):
     """K3 for CUDA tensors, its plain version for CPU tensors."""
-    if a_hi.is_cuda:
-        return merge128_cuda(a_hi, a_lo, a_nf, na, b_hi, b_lo, b_nf, cap)
-    return merge128_plain(a_hi, a_lo, a_nf, na, b_hi, b_lo, b_nf, cap)
+    fn = merge128_cuda if a_hi.is_cuda else merge128_plain
+    return fn(a_hi, a_lo, a_nf, na, b_hi, b_lo, b_nf, cap)

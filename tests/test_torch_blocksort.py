@@ -57,8 +57,11 @@ def _np_sort(x, W):
     return np.sort(x.reshape(-1, W), axis=1).reshape(-1)
 
 
-def test_plain_matches_tpu_kernel_interpreted():
-    W, N = 1024, 4096
+@pytest.mark.parametrize("log2_w,g", [(10, 4), (15, 2), (16, 2)])
+def test_plain_matches_tpu_kernel_interpreted(log2_w, g):
+    """Windows that share a block of the CUDA kernel, fill one, and fill a
+    cluster of two."""
+    W, N = 1 << log2_w, g << log2_w
     x = _values(0, N)
     with pltpu.force_tpu_interpret_mode():
         ref = np.asarray(_tpu_block_sort()(jnp.asarray(x), W))
@@ -67,7 +70,8 @@ def test_plain_matches_tpu_kernel_interpreted():
     np.testing.assert_array_equal(_port_sort(x, W), ref)
 
 
-@pytest.mark.parametrize("log2_w,g", [(7, 5), (10, 3), (13, 4), (15, 2)])
+@pytest.mark.parametrize("log2_w,g", [(7, 5), (10, 3), (13, 4), (15, 2),
+                                      (16, 3), (17, 2), (18, 3), (19, 1)])
 def test_plain_matches_np_sort_per_window(log2_w, g):
     W = 1 << log2_w
     x = _values(log2_w, g * W)
@@ -112,3 +116,22 @@ def test_cuda_wrapper_refuses_cpu_tensor():
     with pytest.raises(ValueError, match="CUDA"):
         bs.block_sort_cuda(torch.zeros(256, dtype=torch.int32), 128)
     assert bs.LAUNCHES == before
+
+
+def test_smoke_cases_cover_every_path_of_the_cuda_kernel():
+    """chip_smoke.k4_cases, which the card runs: windows below, at and
+    above a block's 2^15 words and a cluster's 2^17, and more windows of
+    2^17 than the 33 clusters an H100 holds at once; on the CPU the
+    wrapper's plain version sorts them as numpy does."""
+    import chip_smoke
+
+    seen = {}
+    for name, x, W in chip_smoke.k4_cases("cpu"):
+        seen.setdefault(W, set()).add(x.numel() // W)
+        if name.endswith("_random") and x.numel() <= 1 << 20:
+            v = x.numpy().view(np.uint32)
+            np.testing.assert_array_equal(
+                bs.block_sort(x, W).numpy().view(np.uint32), _np_sort(v, W))
+    assert {1 << 7, 1 << 15, 1 << 16, 1 << 17, 1 << 18, 1 << 19} <= set(seen)
+    assert max(seen[1 << 17]) > 33
+    assert all(x.numel() % W == 0 for _, x, W in chip_smoke.k4_cases("cpu"))

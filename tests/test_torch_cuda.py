@@ -142,7 +142,60 @@ def test_k3_matches_plain(gpu):
         for a, b in zip(got[:3], want[:3]):
             assert torch.equal(a, b), name
         n += 1
-    assert n >= 10
+    # among them: a stream of sentinels only, of one k-mer only, runs
+    # across tiles seeded in either stream, views at odd offsets, a flush
+    # with 30 copies a k-mer and a sentinel tail
+    assert n >= 18
+
+
+def test_k3_chain_of_folds_matches_plain(gpu):
+    """Folds chained on one store (growing, resting, an overflow, a fold
+    after it): the whole capacity equals the plain version's after every
+    step."""
+    before = merge128_cuda.LAUNCHES
+    steps = list(zip(
+        chip_smoke.k3_chain(gpu, merge128_cuda.merge128),
+        chip_smoke.k3_chain(gpu, merge128_cuda.merge128_plain)))
+    assert merge128_cuda.LAUNCHES == before + len(steps) == before + 6
+    for (name, out, n_live), (_, want, n_want) in steps:
+        assert n_live == n_want, name
+        for o, w in zip(out, want):
+            assert torch.equal(o, w), name
+    assert steps[4][0][2] > chip_smoke.K3_CHAIN["capacity"]
+
+
+def test_k3_real_shapes_match_plain(gpu):
+    """The shape a flush hands the fold (59.8 M sorted candidates, 4.1
+    copies a k-mer, a sentinel tail) against a 12.1 M-entry store and
+    against an empty one."""
+    from sh_assembly_tpu_torch.profile import kernels as pk
+
+    flush = pk.k3_flush_case(gpu)
+    for args in (flush, (*flush[:3], 0, *flush[4:])):
+        got = merge128_cuda.merge128(*args)
+        want = merge128_cuda.merge128_plain(*args)
+        assert int(got[3]) == int(want[3])
+        for a, b in zip(got[:3], want[:3]):
+            assert torch.equal(a, b)
+        del got, want
+
+
+def test_k3_refuses_what_the_kernel_does_not_take(gpu):
+    a = (torch.full((64,), -1, dtype=torch.int64, device=gpu),
+         torch.full((64,), -1, dtype=torch.int64, device=gpu),
+         torch.ones(64, dtype=torch.uint8, device=gpu))
+    before = merge128_cuda.LAUNCHES
+    for bad in ((a[0][::2], *a[1:], 0, *a, 64),       # not contiguous
+                (a[0], a[1], a[2].long(), 0, *a, 64),  # flag dtype
+                (*a, 65, *a, 64),                      # na beyond stream a
+                (*a, 0, a[0], a[1][:32], a[2], 64)):   # lengths differ
+        with pytest.raises(ValueError):
+            merge128_cuda.merge128(*bad)
+    # the CUDA wrapper never falls back to the plain version
+    with pytest.raises(ValueError):
+        merge128_cuda.merge128_cuda(*(t.cpu() for t in a), 0,
+                                    *(t.cpu() for t in a), 64)
+    assert merge128_cuda.LAUNCHES == before
 
 
 @pytest.mark.parametrize("k", [21, 47, 63])
@@ -202,7 +255,9 @@ def test_k4_matches_plain(gpu):
         np.testing.assert_array_equal(
             got.cpu().numpy().view(np.uint32), ref.reshape(-1), name)
         n += 1
-    assert n >= 40
+    # windows of 2^7 to 2^19: in a block, in a cluster of two and of four,
+    # above the cluster; 35 windows of 2^17 are more than fit at once
+    assert n >= 60
 
 
 def test_k4_refuses_what_the_kernel_does_not_take(gpu):

@@ -133,15 +133,20 @@ def test_profile_sort_main_on_cpu(capsys):
 
 
 def test_profile_kernels_main_on_cpu(capsys):
-    """K1 and K2 at a CPU size: every row is timed, into a fresh and a
-    reused output, and the generated state is what the rows say."""
+    """K1 to K4 at a CPU size: every row is timed (K1 into a fresh and a
+    reused output) and the generated state is what the rows say."""
     assert pkernels.main(["--device", "cpu", "--log2-capacity", "14"]) == 0
     err = capsys.readouterr().err
     for row in ("K1 merge, fresh output", "K1 merge, reused output",
                 "K1 sweep, fresh output", "K1 sweep, reused output",
                 "K2 4608 probes", "K2 128 probes", "K2 8 probes",
-                "K2 8192 probes", "torch.searchsorted 4608 probes"):
+                "K2 8192 probes", "torch.searchsorted 4608 probes",
+                "K3 small shape, 366 stored + 128",
+                "K3 flush shape: ", "K3 empty store: ",
+                "K4 4096 values, windows of 128",
+                "torch.sort rows [32, 128]"):
         assert row in err, row
+    assert len([ln for ln in err.splitlines() if " ms" in ln]) == 16
     store, buf, n, kb, C = pkernels.big_case("cpu", n_live=3000, n_buf=4096,
                                              capacity=1 << 14)
     assert C == 1 << 14 and kb == 37 and 2900 < n <= 3000
@@ -179,6 +184,45 @@ def test_profile_sort_variants_sort():
     np.testing.assert_array_equal(
         (u32(out["G"][0]).astype(np.uint64) << np.uint64(32))
         | u32(out["G"][1]), np.sort(word.reshape(256, -1), axis=1))
+
+
+def _sorted_stream(hi, lo, nf):
+    """(hi, lo, nflag) ascends, hi and lo compared unsigned."""
+    h, l_ = bits.to_u64_np(hi), bits.to_u64_np(lo)
+    key = list(zip(h.tolist(), l_.tolist(), nf.tolist()))
+    return key == sorted(key)
+
+
+def test_profile_kernels_flush_shape_is_what_it_says():
+    """The generated flush: as many candidates, solid ones, distinct ones
+    and stored ones as asked for, sorted, the sentinels last; the real
+    size is the measured flush."""
+    f = pkernels.FLUSH
+    assert f["cap"] == 1 << 24 and f["n_b"] == 59_768_832
+    assert f["n_hit"] <= f["n_distinct"] <= f["n_solid"] <= f["n_b"]
+    assert f["n_store"] + f["n_distinct"] - f["n_hit"] < f["cap"]
+    shape = dict(n_store=700, cap=1024, n_b=4000, n_solid=3300,
+                 n_distinct=800, n_hit=650)
+    a_hi, a_lo, a_nf, na, b_hi, b_lo, b_nf, cap = pkernels.k3_flush_case(
+        "cpu", **shape)
+    assert (na, cap, b_hi.numel()) == (700, 1024, 4000)
+    assert _sorted_stream(a_hi[:na], a_lo[:na], a_nf[:na])
+    assert _sorted_stream(b_hi, b_lo, b_nf)
+    assert bool((a_hi[na:] == -1).all()) and bool((a_nf[na:] == 1).all())
+    solid = ~((b_hi == -1) & (b_lo == -1))
+    assert int(solid.sum()) == 3300 and bool(solid[:3300].all())
+    assert bool((b_nf[3300:] == 1).all())
+    pairs = set(zip(b_hi[:3300].tolist(), b_lo[:3300].tolist()))
+    stored = set(zip(a_hi[:na].tolist(), a_lo[:na].tolist()))
+    assert len(pairs) == 800 and len(pairs & stored) == 650
+    o_hi, _, o_nf, n_live = pkernels.m3.merge128(a_hi, a_lo, a_nf, na, b_hi,
+                                                 b_lo, b_nf, cap)
+    assert int(n_live) == 700 + 150 and 0 < int((o_nf == 0).sum()) < 850
+    # the small shape: few copies, a quarter of sentinels
+    *_, s_hi, s_lo, s_nf, _ = pkernels.k3_big_case("cpu", n_store=500,
+                                                   cap=1024, n_b=400)
+    assert _sorted_stream(s_hi, s_lo, s_nf)
+    assert int(((s_hi == -1) & (s_lo == -1)).sum()) == 100
 
 
 @pytest.mark.parametrize("mod", [pblocksort, psort, pkernels])
