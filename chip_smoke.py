@@ -78,11 +78,25 @@ exits non-zero without printing a result:
      contigs cli.compare_contigs must find equal to the pipeline's as a
      set of sequences, the CPU and CUDA contigs equal, and cli.cqf_dump
      --meta-only printing the .ser header.
+ 10. the mesh path, n key-range shards on the card (``parallel/``):
+     (a) on phase 3's reads, cqf_denoise --mesh 8 with --device cpu and
+     cuda, byte-identical .ser files with a deNoise sweep mid-stream, and
+     contiger --mesh 4 on both devices, byte-identical unitigs.fa; (b)
+     phase 4's reads and flags through --mesh 8 (2^26 slots a shard),
+     byte-identical to phase 4's .ser (no sweep fires mid-stream), rate,
+     wall, peak memory, K1 launches, and the buffer sort's bytes a key at
+     its peak;
+     (c) phase 7's 12 Mbp genome through cqf_denoise --mesh 4 and contiger
+     --mesh 4: the unitigs the same set as phase 7's (cli.compare_contigs)
+     and cli.minia's contigs within 10% of the genome, with phase
+     breakdowns, peaks and K1-K3 launches; (d) profile.mesh (routed
+     against one shard alone, n = 8) and dryrun_multichip(8).
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels: launches on the path that runs each (phase 7 for K1-K3,
 phase 8's profiling entry point for K4, which the main path never
-launches), times, and each kernel's bound, the least time the card could
+launches), launches on the mesh path (phase 10c), times, and each
+kernel's bound, the least time the card could
 take, computed from this run's shapes and results: the larger of the
 bytes moved (each input read once, the live result written once) over
 HBM_BYTES_PER_S and the key comparisons over OPS_PER_S; K2's entry also
@@ -1477,6 +1491,185 @@ def phase9_library(device):
           f"cli.minia took {wall:.1f} s")
 
 
+def _sort_bytes_per_key(device, n=1 << 27, key_bits=37):
+    """Device bytes the buffer sort allocates per key at its peak, beyond
+    the buffer (``spectrum.SORT_BYTES_PER_KEY`` is this measurement)."""
+    import torch
+
+    from sh_assembly_tpu_torch.ops import spectrum as sp
+
+    g = torch.Generator(device=device).manual_seed(9)
+    buf = torch.randint(0, 1 << key_bits, (n,), generator=g, device=device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = sp.sort_pack_buf(buf, key_bits)
+    torch.cuda.synchronize()
+    need = (torch.cuda.max_memory_allocated() - base) / n
+    del buf, out
+    torch.cuda.empty_cache()
+    return need
+
+
+def _mesh_cli(argv, cli):
+    """One of the port's CLIs with its phase breakdown and the peak device
+    memory -> (stats, log, wall, peak bytes, phases)."""
+    import torch
+
+    from sh_assembly_tpu_torch.utils import profiling
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats, logtxt, wall = _run_cli(argv, cli=cli)
+    phases = {n: s.seconds for n, s in profiling.GLOBAL.stats.items()}
+    return stats, logtxt, wall, torch.cuda.max_memory_allocated(), phases
+
+
+def phase10_mesh():
+    """The mesh path (``parallel/``, --mesh on both CLIs) on the card.
+    Returns the kernel launches of 10c, the mesh path at a genome users
+    assemble."""
+    import torch
+
+    from sh_assembly_tpu_torch.cli import compare_contigs, minia
+    from sh_assembly_tpu_torch.ops import merge_cuda as mc
+    from sh_assembly_tpu_torch.parallel import dryrun
+    from sh_assembly_tpu_torch.profile import mesh as pmesh
+
+    print("== phase 10: the mesh path (n key-range shards on the card)",
+          flush=True)
+    # 10a: CPU and CUDA bytes, mid-stream sweeps on the summed trigger
+    d = os.path.join(WORK, "parity")
+    if not os.path.exists(os.path.join(d, "reads.fastq")):
+        write_fastq(os.path.join(d, "reads.fastq"), **PARITY)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ser = os.path.join(d, f"mesh8_{dev}.ser")
+        _reset_launches()
+        stats, logtxt, wall = _run_cli(PARITY_FLAGS + [
+            "-i", os.path.join(d, "ReadFiles.txt"), "-o", ser, "--mesh",
+            "8", "--device", dev])
+        mid = logtxt.count(" mid-stream: ")
+        print(f"  10a cqf_denoise --mesh 8 {dev}: {stats} mid-stream sweeps "
+              f"{mid}, wall {wall:.1f} s, launches {_launches()}")
+        out[dev] = (open(ser, "rb").read(), mid, _launches())
+    if out["cpu"][0] != out["cuda"][0]:
+        raise AssertionError("--mesh 8: CPU and CUDA .ser files differ")
+    if out["cuda"][1] < 1 or not out["cuda"][2]["merge_dedup"] or \
+            out["cpu"][2]["merge_dedup"]:
+        raise AssertionError("--mesh 8: no mid-stream sweep, or K1 not on "
+                             "the card only")
+    print(f"  10a .ser byte-identical ({len(out['cpu'][0])} bytes)")
+    fa = {}
+    for dev in ("cpu", "cuda"):
+        _reset_launches()
+        _, _, wall = _run_cli([
+            "-k", PARITY_FLAGS[1], "-i", os.path.join(d, "ReadFiles.txt"),
+            "-c", os.path.join(d, "mesh8_cpu.ser"), "--mesh", "4",
+            "-o", os.path.join(d, f"mesh4_{dev}.fa"), "--device", dev],
+            cli="contiger")
+        fa[dev] = (open(os.path.join(d, f"mesh4_{dev}.fa"), "rb").read(),
+                   _launches())
+        print(f"  10a contiger --mesh 4 {dev}: wall {wall:.1f} s, "
+              f"{fa[dev][0].count(b'>')} unitigs, launches {fa[dev][1]}")
+    if fa["cpu"][0] != fa["cuda"][0]:
+        raise AssertionError("--mesh 4: CPU and CUDA unitigs.fa differ")
+    if not (fa["cuda"][1]["count_join"] and fa["cuda"][1]["merge128"]):
+        raise AssertionError("--mesh 4: K2 or K3 never launched")
+    print("  10a unitigs.fa byte-identical")
+
+    # 10b: counting at C. elegans state (2^29 slots), --mesh 8 against the
+    # single store of phase 4: its flags' trigger (310 M distinct) is never
+    # reached, so no sweep fires mid-stream and the two cadences agree
+    d = os.path.join(WORK, "main")
+    single = os.path.join(d, "main.ser")
+    if not os.path.exists(single):
+        write_fastq(os.path.join(d, "reads.fastq"), **MAIN)
+        _run_cli(MAIN_FLAGS + ["-i", os.path.join(d, "ReadFiles.txt"),
+                               "-o", single, "--device", "cuda"])
+    ser = os.path.join(d, "mesh8.ser")
+    mc.LAUNCHES = 0
+    stats, logtxt, wall, peak, phases = _mesh_cli(
+        MAIN_FLAGS + ["-i", os.path.join(d, "ReadFiles.txt"), "-o", ser,
+                      "--mesh", "8", "--device", "cuda"], "cqf_denoise")
+    count_s = sum(v for n, v in phases.items()
+                  if n not in ("count:serialize", "count:mesh gather"))
+    print(f"  10b --mesh 8: {stats}; counting {count_s:.2f} s "
+          f"({stats['kmers'] / count_s:.0f} k-mers/s), CLI wall {wall:.2f} s, "
+          f"peak device memory {peak / 2**30:.2f} GiB, K1 launches "
+          f"{mc.LAUNCHES}")
+    if " mid-stream: " in logtxt or open(single, "rb").read() != \
+            open(ser, "rb").read():
+        raise AssertionError("--mesh 8 .ser differs from phase 4's single "
+                             "store's, or a sweep fired mid-stream")
+    print(f"  10b .ser byte-identical to phase 4's ({os.path.getsize(ser)} "
+          f"bytes); the buffer sort takes "
+          f"{_sort_bytes_per_key('cuda'):.2f} B/key at its peak (2^27 keys)")
+
+    # 10c: the 12 Mbp genome of phase 7 through both CLIs at --mesh 4
+    d = os.path.join(WORK, "genome")
+    if not os.path.exists(os.path.join(d, "reads.fastq")):
+        write_fastq(os.path.join(d, "reads.fastq"), **GENOME)
+    ser = os.path.join(d, "mesh4.ser")
+    ufa = os.path.join(d, "mesh4_unitigs.fa")
+    _reset_launches()
+    stats, _, wall, peak, phases = _mesh_cli(GENOME_FLAGS + [
+        "-i", os.path.join(d, "ReadFiles.txt"), "-o", ser, "--mesh", "4",
+        "--device", "cuda"], "cqf_denoise")
+    print(f"  10c cqf_denoise --mesh 4: {stats}; wall {wall:.2f} s, peak "
+          f"{peak / 2**30:.2f} GiB")
+    for name, sec in sorted(phases.items(), key=lambda kv: -kv[1]):
+        print(f"    {name:<30} {sec:9.3f} s")
+    _, logtxt, wall, peak, phases = _mesh_cli([
+        "-k", GENOME_FLAGS[1], "-i", os.path.join(d, "ReadFiles.txt"),
+        "-c", ser, "--mesh", "4", "-o", ufa, "--device", "cuda"], "contiger")
+    launches = _launches()
+    print(f"  10c contiger --mesh 4: wall {wall:.2f} s, peak "
+          f"{peak / 2**30:.2f} GiB; kernel launches over both CLIs "
+          f"{launches}")
+    for name, sec in sorted(phases.items(), key=lambda kv: -kv[1]):
+        print(f"    {name:<30} {sec:9.3f} s")
+    for line in logtxt.splitlines():
+        if "[Contiger/sharded]" in line and "shards" in line:
+            print("  " + line.split("] ", 1)[-1])
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel never launched on the mesh path: "
+                             f"{launches}")
+    k = GENOME_FLAGS[1]
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = compare_contigs.main(["-k", k, ufa,
+                                   os.path.join(d, "unitigs.fa")])
+    print(f"  10c cli.compare_contigs ({time.time() - t0:.1f} s):")
+    print("    " + buf.getvalue().strip().replace("\n", "\n    "))
+    if rc != 0:
+        raise AssertionError("--mesh 4 unitigs differ from phase 7's")
+    cfa = os.path.join(d, "mesh4_contigs.fa")
+    rc, _, mwall = _run_main(minia.main, [
+        "-kmer-size", k, "-in", ufa, "-unitig", "-out", cfa])
+    clens = _fasta_lengths(cfa)
+    total = int(clens.sum())
+    print(f"  10c unitigs = phase 7's as a set; cli.minia ({mwall:.1f} s): "
+          f"{len(clens)} contigs, {total} bp, N50 {_n50(clens)}")
+    if rc != 0 or abs(total - GENOME["genome_len"]) > \
+            0.1 * GENOME["genome_len"]:
+        raise AssertionError(f"--mesh 4 contigs total {total} bp, not "
+                             f"within 10% of the genome")
+    torch.cuda.empty_cache()
+
+    # 10d: the mesh layer's own entry points at n = 8
+    rc, logtxt, wall = _run_main(pmesh.main, [])
+    r = pmesh.LAST
+    print(f"  10d profile.mesh ({wall:.1f} s): n={r['n']}, {r['keys']} keys: "
+          f"routed scan + merge {r['ms']:.3f} ms, one shard alone "
+          f"{r['plain_ms']:.3f} ms, routing tax x{r['tax']:.2f}")
+    got = dryrun.dryrun_multichip(8, "cuda")
+    print(f"  10d dryrun_multichip(8): {got}")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1497,6 +1690,7 @@ def main() -> int:
         launches = phase7_genome()
         err4, launches["block_sort"], timing["block_sort"] = phase8_k4(dev)
         phase9_library(dev)
+        mesh = phase10_mesh()
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     loaded = [m for m in sys.modules
@@ -1519,7 +1713,8 @@ def main() -> int:
         "name": name, "route": "cuda",
         "source": f"sh_assembly_tpu_torch/csrc/{name}.cu",
         "replaces": where, "launches": launches[name],
-        "launches_in": path, "max_abs_err": e, **timing[t]}
+        "launches_in": path, "mesh_launches": mesh.get(name, 0),
+        "max_abs_err": e, **timing[t]}
         for name, t, where, e, path in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,11 @@
 
 Loads a .ser spectrum onto the device, streams the reads, builds the unitig
 graph and writes the unitig FASTA with km:f:/L: link annotations.  Same
-flags as ``sh_assembly_tpu.cli.contiger`` (without ``--mesh``), plus
-``--device`` (default ``cuda``; asking for CUDA without a visible GPU is an
-error, never a silent CPU run).
+flags as ``sh_assembly_tpu.cli.contiger``, plus ``--device`` (default
+``cuda``; asking for CUDA without a visible GPU is an error, never a silent
+CPU run).  ``--mesh N`` builds the graph over N key-range shards on that
+device (``parallel/driver.contiger_sharded``; -1: one a visible device of
+its kind).
 
 Usage example:
   python -m sh_assembly_tpu_torch.cli.contiger -k 47 -i ReadFiles.txt \
@@ -47,6 +49,9 @@ def make_parser() -> argparse.ArgumentParser:
                    help="host reader/decode threads; reference default 16")
     p.add_argument("-o", "--output", type=str, default="unitigs.fa",
                    help="output unitig fasta")
+    p.add_argument("--mesh", type=int, default=0,
+                   help="build the graph over N key-range shards (0 = single "
+                        "store, -1 = one a visible device)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to build the graph on (default cuda)")
     return p
@@ -77,15 +82,32 @@ def main(argv: list[str] | None = None) -> int:
     log("[Unitig] find unitigs")
     profiling.reset()
     with profiling.maybe_trace():
-        capacity = 1 << max(int(len(keys)).bit_length(), 10)
-        spec = sp.from_host(keys, counts.astype("int64"), capacity,
-                            buf_capacity=1 << 10, key_bits=meta.key_bits,
-                            traveled=traveled, device=device)
-        stream = native.packed_batches_from_files(
-            files, args.k, args.format, batch_cfg.reads_per_batch, Lp,
-            n_threads=args.threads)
-        arrays = contiger.assemble_unitigs_arrays(
-            spec, stream, params, key_bits=meta.key_bits)
+        if args.mesh:
+            from ..parallel import driver
+
+            sizing = cfg.CounterSizing(
+                k=args.k, qb=meta.qb, hb=meta.key_bits, num_true_kmers=0,
+                num_false_kmers=0, n_true_kmers=max(len(keys), 1),
+                num_deNoise=0, ndistinct_for_deNoise=1 << 62,
+                end_deNoise=False, fr=0.0)
+            sc = driver.make_counter(
+                sizing, None if args.mesh < 0 else args.mesh, batch_cfg,
+                device=device)
+            specs = sc.from_host(keys, counts.astype("int64"),
+                                 traveled=traveled)
+            arrays = driver.contiger_sharded(
+                sc, specs, files, params, fmode=args.format,
+                batch_cfg=batch_cfg, n_threads=args.threads)
+        else:
+            capacity = 1 << max(int(len(keys)).bit_length(), 10)
+            spec = sp.from_host(keys, counts.astype("int64"), capacity,
+                                buf_capacity=1 << 10, key_bits=meta.key_bits,
+                                traveled=traveled, device=device)
+            stream = native.packed_batches_from_files(
+                files, args.k, args.format, batch_cfg.reads_per_batch, Lp,
+                n_threads=args.threads)
+            arrays = contiger.assemble_unitigs_arrays(
+                spec, stream, params, key_bits=meta.key_bits)
         log(f"Number of unitigs: {arrays.n}")
         log(f"Number of palindrome unitigs: {arrays.n_palindromes}")
         log(f"Total length of unitigs: {int(arrays.offsets[-1])}")

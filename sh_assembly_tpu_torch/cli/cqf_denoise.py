@@ -2,9 +2,11 @@
 
 Counts canonical k-mers of the listed read files into the device spectrum,
 runs the deNoise schedule, and serializes a reference-format .ser file.
-Same flags as ``sh_assembly_tpu.cli.cqf_denoise`` (without ``--mesh``),
-plus ``--device`` (default ``cuda``; asking for CUDA without a visible GPU
-is an error, never a silent CPU run).
+Same flags as ``sh_assembly_tpu.cli.cqf_denoise``, plus ``--device``
+(default ``cuda``; asking for CUDA without a visible GPU is an error,
+never a silent CPU run).  ``--mesh N`` counts over N key-range shards on
+that device (``parallel/driver.count_sharded``; -1: one a visible device
+of its kind).
 
 Usage example:
   python -m sh_assembly_tpu_torch.cli.cqf_denoise -k 47 -N 16506371070 \
@@ -57,6 +59,9 @@ def make_parser() -> argparse.ArgumentParser:
                    help="file listing read file names")
     p.add_argument("-o", "--output", type=str, default="",
                    help="output .ser file name")
+    p.add_argument("--mesh", type=int, default=0,
+                   help="count over N key-range shards (0 = single store, "
+                        "-1 = one a visible device)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to count on (default cuda)")
     return p
@@ -112,12 +117,22 @@ def main(argv: list[str] | None = None) -> int:
     t0 = time.time()
     profiling.reset()
     with profiling.maybe_trace():
-        spec, stats = counter.build_spectrum_from_files(
-            files, sizing, fmode=args.format, progress_every=200,
-            n_threads=args.threads, device=device,
-        )
+        if args.mesh:
+            from ..parallel import driver
+
+            _, _, keys, counts, mstats = driver.count_sharded(
+                files, sizing, fmode=args.format,
+                n_mesh=None if args.mesh < 0 else args.mesh,
+                n_threads=args.threads, device=device)
+            stats = counter.BuildStats(**mstats)
+        else:
+            spec, stats = counter.build_spectrum_from_files(
+                files, sizing, fmode=args.format, progress_every=200,
+                n_threads=args.threads, device=device,
+            )
         with profiling.phase("count:serialize"):
-            keys, counts, traveled = sp.to_host(spec, sizing.hb)
+            if not args.mesh:
+                keys, counts = sp.to_host(spec, sizing.hb)[:2]
             cqf_ser.write_ser(
                 output, keys, counts, qb=sizing.qb, key_bits=sizing.hb,
                 nelts=stats.kmers, ndistinct=stats.distinct,

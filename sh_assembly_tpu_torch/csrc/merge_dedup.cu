@@ -481,21 +481,21 @@ int merge_dedup_launch(const void* a, long long na, const void* b,
                        long long nb, void* out, long long out_cap,
                        long long out_dirty, void* scratch, void* meta,
                        int key_bits, int drop_singletons, void* stream) {
-  static int grid_max = 0;  // blocks of k_merge the device holds at once
-  if (grid_max == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    // more than 48 KB of shared memory has to be asked for, once
-    cudaError_t e = cudaFuncSetAttribute(
-        k_merge, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)sizeof(Shared));
-    if (e != cudaSuccess) return (int)e;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k_merge, NT,
-                                                  sizeof(Shared));
-    if (sms <= 0 || per_sm <= 0) return (int)cudaErrorLaunchFailure;
-    grid_max = sms * per_sm;
-  }
+  // blocks of k_merge the current device holds at once: the look-back
+  // relies on every launched block being resident.  Asked on every launch
+  // (the queries are cheap), so a second device gets its own answer.
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // more than 48 KB of shared memory has to be asked for
+  cudaError_t e = cudaFuncSetAttribute(
+      k_merge, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sizeof(Shared));
+  if (e != cudaSuccess) return (int)e;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k_merge, NT,
+                                                sizeof(Shared));
+  if (sms <= 0 || per_sm <= 0) return (int)cudaErrorLaunchFailure;
+  const long long grid_max = (long long)sms * per_sm;
   cudaStream_t st = (cudaStream_t)stream;
   Geo g;
   g.a = (const uint64_t*)a;
@@ -510,7 +510,7 @@ int merge_dedup_launch(const void* a, long long na, const void* b,
   long long max_tiles = (na + nb + TILE - 1) / TILE;
   long long* hdr = (long long*)scratch;
   long long* co = hdr + HDR + DESC * max_tiles;
-  cudaError_t e = cudaMemsetAsync(
+  e = cudaMemsetAsync(
       hdr, 0, sizeof(long long) * (HDR + DESC * max_tiles), st);
   if (e != cudaSuccess) return (int)e;
   int pb = 128;

@@ -76,16 +76,17 @@ def _check(x: torch.Tensor, W: int) -> None:
 
 
 def block_sort_cuda(x: torch.Tensor, W: int) -> torch.Tensor:
-    """Launch K4 on the current CUDA stream (see module docstring)."""
+    """Launch K4 on its tensors' GPU and current stream (module docstring)."""
     global LAUNCHES
     _check(x, W)
     if not x.is_cuda:
         raise ValueError("block_sort_cuda needs a CUDA tensor")
     lib = _load()
     out = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.block_sort_launch(x.data_ptr(), out.data_ptr(), x.numel(), W,
-                               stream)
+    with torch.cuda.device(x.device):  # launch on the tensor's device
+        rc = lib.block_sort_launch(
+            x.data_ptr(), out.data_ptr(), x.numel(), W,
+            torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"block_sort kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

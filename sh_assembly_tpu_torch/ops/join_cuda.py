@@ -69,7 +69,7 @@ def _check(t: torch.Tensor, name: str) -> None:
 
 def count_join_cuda(store: torch.Tensor, n_main: int, queries: torch.Tensor,
                     key_bits: int) -> torch.Tensor:
-    """Launch K2 on the current CUDA stream (see module docstring)."""
+    """Launch K2 on its tensors' GPU and current stream (module docstring)."""
     global LAUNCHES
     _geometry(key_bits)
     _check(store, "store")
@@ -85,10 +85,11 @@ def count_join_cuda(store: torch.Tensor, n_main: int, queries: torch.Tensor,
     # the partition array: one store position per tile boundary
     scratch = torch.empty(lib.count_join_scratch_words(nq),
                           dtype=torch.int64, device=store.device)
-    stream = torch.cuda.current_stream(store.device).cuda_stream
-    rc = lib.count_join_launch(store.data_ptr(), n_main, queries.data_ptr(),
-                               nq, out.data_ptr(), scratch.data_ptr(),
-                               key_bits, stream)
+    with torch.cuda.device(store.device):  # launch on the tensors' device
+        rc = lib.count_join_launch(
+            store.data_ptr(), n_main, queries.data_ptr(), nq, out.data_ptr(),
+            scratch.data_ptr(), key_bits,
+            torch.cuda.current_stream(store.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"count_join kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

@@ -79,7 +79,7 @@ def _check_stream(hi, lo, nf, name: str) -> None:
 
 
 def merge128_cuda(a_hi, a_lo, a_nf, na: int, b_hi, b_lo, b_nf, cap: int):
-    """Launch K3 on the current CUDA stream (see module docstring)."""
+    """Launch K3 on its tensors' GPU and current stream (module docstring)."""
     global LAUNCHES
     _check_stream(a_hi, a_lo, a_nf, "a")
     _check_stream(b_hi, b_lo, b_nf, "b")
@@ -98,12 +98,14 @@ def merge128_cuda(a_hi, a_lo, a_nf, na: int, b_hi, b_lo, b_nf, cap: int):
     # tensor; the launch zeroes what it must
     scratch = torch.empty(lib.merge128_scratch_words(na + nb),
                           dtype=torch.int64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.merge128_launch(
-        a_hi.data_ptr(), a_lo.data_ptr(), a_nf.data_ptr(), na,
-        b_hi.data_ptr(), b_lo.data_ptr(), b_nf.data_ptr(), nb,
-        o_hi.data_ptr(), o_lo.data_ptr(), o_nf.data_ptr(), cap,
-        scratch.data_ptr(), stream)
+    # the launcher sizes its grid for the current device: make it the
+    # tensors' own
+    with torch.cuda.device(dev):
+        rc = lib.merge128_launch(
+            a_hi.data_ptr(), a_lo.data_ptr(), a_nf.data_ptr(), na,
+            b_hi.data_ptr(), b_lo.data_ptr(), b_nf.data_ptr(), nb,
+            o_hi.data_ptr(), o_lo.data_ptr(), o_nf.data_ptr(), cap,
+            scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"merge128 kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

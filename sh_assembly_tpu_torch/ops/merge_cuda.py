@@ -105,7 +105,7 @@ def merge_dedup_cuda(main: torch.Tensor, buf: torch.Tensor, n_main: int,
                      key_bits: int, drop_singletons: bool, capacity: int,
                      out: torch.Tensor | None = None,
                      out_dirty: int | None = None):
-    """Launch K1 on the current CUDA stream (see module docstring)."""
+    """Launch K1 on its tensors' GPU and current stream (module docstring)."""
     global LAUNCHES
     _geometry(key_bits)
     _check(main, "main")
@@ -121,11 +121,14 @@ def merge_dedup_cuda(main: torch.Tensor, buf: torch.Tensor, n_main: int,
     scratch = torch.empty(lib.merge_dedup_scratch_words(n_main + buf.numel()),
                           dtype=torch.int64, device=dev)
     meta = torch.empty(2, dtype=torch.int64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.merge_dedup_launch(
-        main.data_ptr(), n_main, buf.data_ptr(), buf.numel(),
-        out.data_ptr(), capacity, out_dirty, scratch.data_ptr(),
-        meta.data_ptr(), key_bits, int(bool(drop_singletons)), stream)
+    # the launcher sizes its grid for the current device: make it the
+    # tensors' own
+    with torch.cuda.device(dev):
+        rc = lib.merge_dedup_launch(
+            main.data_ptr(), n_main, buf.data_ptr(), buf.numel(),
+            out.data_ptr(), capacity, out_dirty, scratch.data_ptr(),
+            meta.data_ptr(), key_bits, int(bool(drop_singletons)),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"merge_dedup kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

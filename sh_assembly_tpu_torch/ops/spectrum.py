@@ -175,14 +175,39 @@ def drop_spare(spec: Spectrum) -> Spectrum:
     return dataclasses.replace(spec, spare=None, spare_dirty=0)
 
 
+# Device bytes the buffer sort (``sort_pack_buf``) allocates per key at its
+# peak, beyond the buffer: its packed copy, the flipped copy, torch.sort's
+# values, indices and scratch.  56.2 at 2^27 keys on an NVIDIA H100 80GB
+# HBM3 (chip_smoke.py phase 10b), rounded up.
+SORT_BYTES_PER_KEY = 57
+
+
+def _room_to_sort(spec: Spectrum) -> bool:
+    """Whether the buffer sort fits on the spectrum's device beside what is
+    allocated now: the device's free memory plus what PyTorch's allocator
+    holds unused.  Always true off CUDA."""
+    dev = spec.buf.device
+    if dev.type != "cuda":
+        return True
+    free, _ = torch.cuda.mem_get_info(dev)
+    idle = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    return SORT_BYTES_PER_KEY * spec.n_buf <= free + idle
+
+
 def merge(spec: Spectrum, key_bits: int,
           drop_singletons: bool = False) -> Spectrum:
     """Fold the live buffer prefix into the store (K1).
 
     With drop_singletons=True runs whose total is 1 are purged (the
     deNoise sweep semantics).  Only ``buf[:n_buf]`` is sorted, so a mostly
-    empty buffer costs only its fill.
+    empty buffer costs only its fill.  When the sort would not fit on the
+    device beside the spare store, the spare goes first and the fold
+    writes into a fresh store: the same result, one store less while the
+    buffer is sorted.
     """
+    if spec.spare is not None and not _room_to_sort(spec):
+        # in place: the caller's reference to spec must let go of it too
+        spec.spare, spec.spare_dirty = None, 0
     sb = sort_pack_buf(spec.buf[:spec.n_buf], key_bits)
     return _fold(spec, sb, key_bits, drop_singletons)
 

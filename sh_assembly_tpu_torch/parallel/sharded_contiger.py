@@ -1,0 +1,527 @@
+"""Sharded Contiger: a distributed node store, probe joins and count
+queries over the counting mesh.
+
+Counterpart of ``sh_assembly_tpu/parallel/sharded_contiger.py``.  The
+spectrum stays sharded by key range (the counting rule, parallel/
+sharded.py) and the node store by k-mer range (the top bits of the
+canonical k-mer's high word).  Every cross-shard lookup is a sorted quota
+all_to_all round trip:
+
+  count query:  pack (key | query index) -> sort -> rows per owner ->
+                all_to_all -> the owner's count join (kernel K2 on CUDA
+                tensors) -> pack (index | count) -> all_to_all back ->
+                scatter by index
+  node join:    route (hi, lo, index) by k-mer owner -> the owner's
+                ``join2`` against its store -> global index = shard * cap
+                + local -> all_to_all back
+  store fold:   route (k-mer, inverted seed flag) triples to their owners,
+                sort them, fold them into the owner's store (kernel K3 on
+                CUDA tensors: the single-device flush's fold)
+
+Contraction and the host assembly are the single-device tail
+(``contiger.finalize_unitigs``) on the shards' stores concatenated: a
+node's index is shard * node_cap_local + local, so the unitig numbering
+follows the JAX sharded run and not the single-device one.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Iterable
+
+import numpy as np
+import torch
+
+from .. import config as cfg
+from ..io import fastq
+from ..models import contiger
+from ..ops import bits, kmerpack as kp, merge128_cuda, nthash, packio, \
+    spectrum as sp
+from ..utils import profiling
+from ..utils.logging import log
+from .sharded import ShardedCounter, quota_rows, row_width, \
+    split_rows
+
+SENT = bits.SENTINEL
+_MASK32 = 0xFFFFFFFF
+
+
+def _edges(values, device) -> torch.Tensor:
+    """Unsigned 64-bit boundaries as flipped int64 (searchsorted needles)."""
+    return bits.flip(bits.from_u64_np(np.array(values, np.uint64), device))
+
+
+@dataclass(frozen=True)
+class ShardedContiger:
+    """The Contiger's collective steps over the counting mesh."""
+
+    counter: ShardedCounter
+    k: int
+    abundance_min: int
+    node_cap_local: int  # node-store capacity per shard (power of two)
+    quota_slack: float = 2.0
+
+    @property
+    def mesh(self):
+        return self.counter.mesh
+
+    @property
+    def n_shards(self) -> int:
+        return self.counter.n_shards
+
+    @property
+    def key_bits(self) -> int:
+        return self.counter.key_bits
+
+    def _quota(self, per_shard_windows: int) -> int:
+        n = self.n_shards
+        return int(np.ceil(per_shard_windows / n * self.quota_slack))
+
+    def _kmer_edges(self, device) -> torch.Tensor:
+        """Owner boundaries on the canonical k-mer's high word."""
+        n, sb = self.n_shards, self.counter.shard_bits
+        return _edges([(o << (64 - sb)) if o < n else (1 << 64) - 1
+                       for o in range(n + 1)], device)
+
+    def _route(self, cols, bounds, Q: int, fills):
+        """Exchange every shard's sorted columns by owner: row o of shard s
+        holds cols[s][c][bounds[s][o]:bounds[s][o + 1]], at most Q of them,
+        padded with fills[c] to the widest count (``row_width``).  The
+        columns go one at a time and are released as they are cut.  Returns
+        (the received columns per shard, each [n * width], the entries
+        beyond a quota, width)."""
+        width = row_width(bounds, Q)
+        recv, drop = [], 0
+        for c, fill in enumerate(fills):
+            rows = []
+            for col, b in zip(cols, bounds):
+                r, d = quota_rows(col[c], b, Q, fill, width)
+                col[c] = None
+                rows.append(r)
+                if c == 0:
+                    drop = drop + d
+            recv.append(self.mesh.all_to_all(rows))
+            del rows
+        return list(zip(*recv)), drop, width
+
+    # -- distributed count queries (round trip) -----------------------------
+    def _dist_counts(self, specs, keys, Qd: int):
+        """Counts of every shard's query keys (-1 = none) against the
+        key-range-sharded spectrum -> (int32 counts per shard, dropped).
+        Empties ``keys``."""
+        n, kb = self.n_shards, self.key_bits
+        if n == 1:
+            return [sp.query_join_auto(specs[0], keys.pop(), kb)], 0
+        dev = keys[0].device
+        sizes = [q.numel() for q in keys]
+        idx_bits = max(int(np.ceil(np.log2(max(max(sizes), 2)))), 1)
+        if kb + idx_bits > 63:
+            raise ValueError("dist-count packing overflow")
+        sb = self.counter.shard_bits
+        edges = _edges([(o << (kb - sb)) << idx_bits for o in range(n + 1)],
+                       dev)
+        cols, bounds = [], []
+        for q in keys:
+            # only real keys are packed: the -1 ones would sort last and
+            # fall outside every owner's range
+            at = torch.nonzero(q != SENT).squeeze(1)
+            srt = bits.usort((q[at] << idx_bits) | at)
+            bounds.append(torch.searchsorted(bits.flip(srt), edges))
+            cols.append([srt])
+            del at
+        keys.clear()
+        recv, drop, width = self._route(cols, bounds, Qd, [SENT])
+        resp = []
+        for me, spec in enumerate(specs):
+            (r,) = recv[me]
+            recv[me] = None
+            sent = r == SENT
+            c = sp.query_join_auto(
+                spec, torch.where(sent, SENT, bits.srl(r, idx_bits)), kb)
+            resp.append(torch.where(
+                sent, SENT, ((r & ((1 << idx_bits) - 1)) << 32) | c.long()
+            ).reshape(n, width))
+            del r, sent, c
+        out = []
+        for b, Q in zip(self.mesh.all_to_all(resp), sizes):
+            ridx = bits.srl(b, 32)
+            counts = torch.zeros(Q + 1, dtype=torch.int32, device=dev)
+            counts[torch.where(ridx < Q, ridx, Q)] = (b & _MASK32).int()
+            out.append(counts[:Q])
+        return out, drop
+
+    # -- distributed node-store join (round trip) ---------------------------
+    def _dist_join(self, stores, queries, Qd: int):
+        """Global node index of every shard's (qhi, qlo) k-mer queries
+        against the k-mer-range-sharded store (-1 = absent) -> (int64
+        indices per shard, dropped).  Empties ``queries``."""
+        n, Cl = self.n_shards, self.node_cap_local
+        if n == 1:
+            (st,), ((qh, ql),) = stores, queries
+            return [kp.join2(st.hi, st.lo, qh, ql).long()], 0
+        dev = stores[0].hi.device
+        sizes = [qh.numel() for qh, _ in queries]
+        edges = self._kmer_edges(dev)
+        cols, bounds = [], []
+        for qh, ql in queries:
+            perm = kp.sort_pairs(qh, ql)
+            sh = qh[perm]
+            # a k-mer whose high word is all ones sorts at the last edge
+            # and is routed nowhere, as in the JAX layer
+            bounds.append(torch.searchsorted(bits.flip(sh), edges).clamp(
+                max=sh.numel()))
+            cols.append([sh, ql[perm], perm])
+            del perm, sh
+        queries.clear()
+        recv, drop, width = self._route(cols, bounds, Qd, [SENT] * 3)
+        resp = []
+        for me, st in enumerate(stores):
+            gh, gl, go = recv[me]
+            recv[me] = None
+            j = kp.join2(st.hi, st.lo, gh, gl).long()
+            gidx = torch.where(j >= 0, me * Cl + j, -1)
+            resp.append(torch.where(go == SENT, SENT, (go << 32) | (gidx + 1))
+                        .reshape(n, width))
+            del gh, gl, go, j, gidx
+        out = []
+        for b, Q in zip(self.mesh.all_to_all(resp), sizes):
+            ridx = bits.srl(b, 32)
+            pos = torch.where((b != SENT) & (ridx < Q), ridx, Q)
+            idx = torch.full((Q + 1,), -1, dtype=torch.int64, device=dev)
+            idx[pos] = (b & _MASK32) - 1
+            out.append(idx[:Q])
+        return out, drop
+
+    # -- routing and the store fold -----------------------------------------
+    def _route_and_merge(self, stores, cands, Qc: int,
+                         frontier: bool = False):
+        """Route every shard's (hi, lo, nflag) candidate k-mers (nflag 0 =
+        seed) to their owners and fold them into the owners' stores, first
+        copy under (hi, lo, nflag) order so seed flags OR.  Updates the
+        stores in place and empties ``cands`` -> (n_live per shard, which
+        may exceed the capacity, dropped, and with ``frontier`` the
+        distinct (hi, lo) each owner received)."""
+        n, Cl = self.n_shards, self.node_cap_local
+        drop = 0
+        if n > 1:
+            edges = self._kmer_edges(stores[0].hi.device)
+            cols, bounds = [], []
+            for chi, clo, nflag in cands:
+                perm = kp.sort_pairs(chi, clo)
+                sh = chi[perm]
+                bounds.append(torch.searchsorted(bits.flip(sh), edges).clamp(
+                    max=sh.numel()))
+                cols.append([sh, clo[perm], nflag[perm]])
+                del perm, sh
+            cands.clear()
+            cands, drop, _ = self._route(cols, bounds, Qc, [SENT, SENT, 1])
+        n_live, fresh = [], []
+        for me, st in enumerate(stores):
+            chi, clo, nflag = cands[me]
+            cands[me] = None
+            perm = kp.sort_pairs(chi, clo, nflag)
+            chi, clo, nflag = chi[perm], clo[perm], nflag[perm]
+            o_hi, o_lo, o_nf, nl = merge128_cuda.merge128(
+                st.hi, st.lo, 1 - st.seed, st.n, chi, clo, nflag, Cl)
+            st.hi, st.lo, st.seed = o_hi, o_lo, 1 - o_nf
+            st.n = min(int(nl), Cl)
+            n_live.append(int(nl))
+            if frontier:
+                first = torch.ones(chi.shape, dtype=torch.bool,
+                                   device=chi.device)
+                first[1:] = (chi[1:] != chi[:-1]) | (clo[1:] != clo[:-1])
+                keep = first & ~((chi == SENT) & (clo == SENT))
+                fresh.append((chi[keep], clo[keep]))
+            del chi, clo, nflag, perm
+        return n_live, drop, fresh
+
+    # -- phase A: node collection -------------------------------------------
+    def collect(self, specs, stores, packed, nmask, lengths, seed_cols,
+                Lp: int):
+        """One batch (per-shard row blocks of the packed transport format)
+        -> (n_live per shard, dropped).  Every valid N-free window whose
+        key counts at least abundance_min is a node; a window at its read's
+        seed column is a seed."""
+        k, kb = self.k, self.key_bits
+        W = Lp - k + 1
+        Qc = self._quota(packed[0].shape[0] * W)
+        keys, rows = [], []
+        for p, m, ln in zip(packed, nmask, lengths):
+            codes = packio.unpack(p, m, Lp)
+            kk, valid = nthash.windowed_canonical(codes, ln, k)
+            keys.append(torch.where(valid, nthash.mask_keys(kk, kb),
+                                    SENT).reshape(-1))
+            rows.append((codes, valid))
+        counts, d0 = self._dist_counts(specs, keys, Qc)
+        cands = []
+        for (codes, valid), cnt, sc in zip(rows, counts, seed_cols):
+            SB = codes.shape[0]
+            cbad = torch.cumsum((codes >= 4).int(), dim=1)
+            nfree = (cbad[:, k - 1:] - torch.cat(
+                [torch.zeros((SB, 1), dtype=cbad.dtype, device=codes.device),
+                 cbad[:, :W - 1]], dim=1)) == 0
+            solid = valid & nfree & (cnt.reshape(SB, W) >= self.abundance_min)
+            is_seed = solid & (torch.arange(W, device=codes.device)[None, :]
+                               == sc.long()[:, None])
+            hi, lo = kp.pack_windows(codes, k)
+            rhi, rlo = kp.revcomp_packed(hi, lo, k)
+            chi, clo, _ = kp.canonicalize(hi, lo, rhi, rlo)
+            at = solid.reshape(-1)
+            cands.append((chi.reshape(-1)[at], clo.reshape(-1)[at],
+                          torch.where(is_seed.reshape(-1)[at], 0, 1)
+                          .to(torch.uint8)))
+        del rows, counts
+        n_live, d1, _ = self._route_and_merge(stores, cands, Qc)
+        return n_live, d0 + d1
+
+    # -- phase A2: phantom closure ------------------------------------------
+    def phantom(self, specs, stores, frontiers):
+        """One closure round over the mesh: every shard probes the 16
+        candidate k-mers (8 successors of both orientations and 8 suffix
+        siblings) of its frontier nodes, keeps those that pass the count
+        filter and are absent from the distributed store, and routes them
+        to their owners -> (n_live per shard, nodes added over all shards,
+        dropped, the next frontiers: the nodes each owner added).
+
+        The JAX layer probes every node every round.  A node probed in an
+        earlier round adds nothing later (its candidates are stored by now
+        or fail a count that does not change), so probing the last round's
+        additions gives the same nodes in the same rounds."""
+        k, Cl = self.k, self.node_cap_local
+        mask = (1 << self.key_bits) - 1
+        Qc = self._quota(16 * Cl)
+        probes, joins, keys = [], [], []
+        for hi, lo in frontiers:
+            fh0, rh0 = contiger._node_hashes(hi, lo, k)
+            rhi, rlo = kp.revcomp_packed(hi, lo, k)
+            pkeys, shi, slo, _ = contiger._succ_probes(
+                hi, lo, rhi, rlo, fh0, rh0, k, mask)
+            skeys, shi2, slo2 = contiger._sibling_probes(
+                hi, lo, rhi, rlo, fh0, rh0, k, mask)
+            ahi, alo = torch.cat(shi + shi2), torch.cat(slo + slo2)
+            probes.append((ahi, alo))
+            joins.append((ahi, alo))
+            keys.append(torch.cat(pkeys + skeys))
+            del fh0, rh0, rhi, rlo, pkeys, shi, slo, skeys, shi2, slo2
+        frontiers.clear()
+        all_j, dj = self._dist_join(stores, joins, Qc)
+        cnts, dc = self._dist_counts(specs, keys, Qc)
+        old_n = [st.n for st in stores]
+        cands = []
+        for (ahi, alo), j, c in zip(probes, all_j, cnts):
+            ph = (c >= self.abundance_min) & (j < 0)
+            cands.append((ahi[ph], alo[ph],  # phantoms never seed
+                          torch.ones(int(ph.sum()), dtype=torch.uint8,
+                                     device=ahi.device)))
+        del probes, all_j, cnts
+        n_live, d1, fresh = self._route_and_merge(stores, cands, Qc,
+                                                  frontier=True)
+        n_new = self.mesh.psum(a - b for a, b in zip(n_live, old_n))
+        return n_live, n_new, dj + dc + d1, fresh
+
+    # -- phase B: graph probes ----------------------------------------------
+    def probe(self, specs, stores):
+        """The 8 successor probes of both orientations and each node's own
+        count -> per shard (ecount[2Cl], succ_gidx[2Cl], succ_orient[2Cl],
+        node_counts[Cl], valid[Cl]) with GLOBAL indices (zeros in the
+        store's empty slots), and dropped."""
+        k, Cl = self.k, self.node_cap_local
+        mask = (1 << self.key_bits) - 1
+        Qc = self._quota(9 * Cl)
+        Qj = self._quota(8 * Cl)
+        joins, keys, flips = [], [], []
+        for st in stores:
+            hi, lo = st.hi[:st.n], st.lo[:st.n]  # the live nodes
+            fh0, rh0 = contiger._node_hashes(hi, lo, k)
+            rhi, rlo = kp.revcomp_packed(hi, lo, k)
+            pkeys, shi, slo, sflip = contiger._succ_probes(
+                hi, lo, rhi, rlo, fh0, rh0, k, mask)
+            keys.append(torch.cat([bits.umin(fh0, rh0) & mask] + pkeys))
+            joins.append((torch.cat(shi), torch.cat(slo)))
+            flips.append(sflip)
+            del fh0, rh0, rhi, rlo, pkeys, shi, slo
+        all_j, dj = self._dist_join(stores, joins, Qj)
+        all_c, dc = self._dist_counts(specs, keys, Qc)
+        out = []
+        for st, sflip, j, c in zip(stores, flips, all_j, all_c):
+            N = st.n
+            j, c = j.reshape(8, N), c.reshape(9, N)
+            dev = j.device
+            ec_o, sj_o, sp_o = [], [], []
+            for o in range(2):
+                ec = torch.zeros(Cl, dtype=torch.int32, device=dev)
+                uj = torch.zeros(Cl, dtype=torch.int64, device=dev)
+                up = torch.zeros(Cl, dtype=torch.int32, device=dev)
+                for X in range(4):
+                    e = c[1 + o * 4 + X] >= self.abundance_min
+                    ec[:N] += e.int()
+                    uj[:N] += torch.where(e, j[o * 4 + X], 0)
+                    up[:N] += torch.where(e, sflip[o * 4 + X], 0)
+                ec_o.append(ec)
+                sj_o.append(uj)
+                sp_o.append(up)
+            counts = torch.zeros(Cl, dtype=torch.int32, device=dev)
+            counts[:N] = c[0]
+            out.append((torch.stack(ec_o, dim=1).reshape(-1),
+                        torch.stack(sj_o, dim=1).reshape(-1),
+                        torch.stack(sp_o, dim=1).reshape(-1), counts,
+                        torch.arange(Cl, device=dev) < N))
+        return out, dj + dc
+
+
+def node_cap_for(specs) -> int:
+    """Per-shard node-store capacity: the busiest shard's expected share of
+    the summed distinct keys with 1/8 slack, as a power of two.
+
+    A shard owns a range of the canonical k-mers' top bits, and a canonical
+    k-mer is the smaller of two near-uniform words, so shard 0 expects
+    1 - (1 - 1/n)^2 of the nodes (7/16 at n = 4), not 1/n.  The JAX layer
+    sizes for 1/n (``nd // n + nd // (8 * n) + 1024``) and overflows on a
+    genome of a few Mbp at any n > 1; at n = 1 both rules agree.  Nothing
+    the Contiger outputs depends on the capacity.
+    """
+    n = len(specs)
+    nd = max(sum(s.ndistinct for s in specs), 1024)
+    busiest = nd - nd * (n - 1) ** 2 // n ** 2
+    per = busiest + busiest // 8 + 1024
+    return 1 << int(np.ceil(np.log2(per)))
+
+
+def assemble_unitigs_sharded(
+    sc: ShardedCounter,
+    specs: list[sp.Spectrum],
+    batches: Iterable[fastq.Batch],
+    params: cfg.ContigerParams,
+    node_cap_local: int | None = None,
+    quota_slack: float = 2.0,
+) -> contiger.ArrayUnitigs:
+    """Full Contiger over a sharded spectrum -> ArrayUnitigs.
+
+    Node collection, the phantom closure and the graph probes run over
+    the mesh; contraction and the host assembly are the single-device
+    tail (``contiger.finalize_unitigs``).
+    """
+    k = params.k
+    n = sc.n_shards
+    dev = sc.device
+    contiger.check_solid_cap(sc.key_bits, params.solid_kmer_abundance_max)
+    if node_cap_local is None:
+        node_cap_local = node_cap_for(specs)
+    st = ShardedContiger(counter=sc, k=k,
+                         abundance_min=params.kmer_abundance_min,
+                         node_cap_local=node_cap_local,
+                         quota_slack=quota_slack)
+    Cl = node_cap_local
+
+    # ---- phase A over host batches ----------------------------------------
+    stores = [contiger._NodeStore(
+        hi=torch.full((Cl,), SENT, dtype=torch.int64, device=dev),
+        lo=torch.full((Cl,), SENT, dtype=torch.int64, device=dev),
+        seed=torch.zeros(Cl, dtype=torch.uint8, device=dev))
+        for _ in range(n)]
+    n_peak = 0
+    B = Lp = None
+    dropped = 0
+    saw_seed_meta = False
+    with profiling.phase("contiger:mesh collect"):
+        for b in batches:
+            if isinstance(b, fastq.PackedBatch):
+                # native transport format: already 2-bit packed + N-masked
+                packed, nmask, Lp_b = b.packed, b.nmask, b.row_len
+            else:
+                codes = b.codes
+                L = codes.shape[1]
+                Lp_b = (L + 7) // 8 * 8
+                if Lp_b != L:
+                    codes = np.pad(codes, ((0, 0), (0, Lp_b - L)),
+                                   constant_values=5)
+                packed, nmask = packio.pack_np(codes)
+            rows = packed.shape[0]
+            if Lp is None:
+                Lp, B = Lp_b, rows
+                if B % n:
+                    raise ValueError(
+                        f"batch rows {B} not divisible by mesh {n}")
+            if Lp_b != Lp or rows != B:
+                raise ValueError("mixed batch geometry")
+            if b.seed_col is not None:
+                saw_seed_meta = True
+                seedc = np.asarray(b.seed_col, np.int32)
+            else:
+                seedc = np.full(rows, -1, np.int32)
+            n_live, d = st.collect(
+                specs, stores, *(split_rows(sc.mesh, a) for a in (
+                    packed, nmask, np.asarray(b.lengths, np.int32), seedc)),
+                Lp)
+            n_peak = max(n_peak, max(n_live))
+            dropped += int(d)
+    if Lp is None:
+        return contiger.ArrayUnitigs.empty(k)
+    if dropped:
+        raise RuntimeError(
+            f"sharded collect dropped {dropped} routed k-mers: raise "
+            f"quota_slack")
+    if n_peak >= Cl:
+        raise RuntimeError(
+            f"node store overflow: shard peak {n_peak} reached cap {Cl}; "
+            f"pass a larger node_cap_local")
+
+    # ---- phase A2: phantom closure ----------------------------------------
+    max_rounds = 8
+    frontiers = [(s.hi[:s.n], s.lo[:s.n]) for s in stores]
+    with profiling.phase("contiger:mesh phantom closure"):
+        for rnd in range(max_rounds):
+            n_live, n_new, d, frontiers = st.phantom(specs, stores,
+                                                     frontiers)
+            if int(d):
+                raise RuntimeError(
+                    "sharded phantom closure dropped routed k-mers: raise "
+                    "quota_slack")
+            n_peak = max(n_peak, max(n_live))
+            if n_peak >= Cl:
+                raise RuntimeError(
+                    f"node store overflow during phantom closure: shard "
+                    f"peak {n_peak} reached cap {Cl}")
+            if n_new == 0:
+                break
+            log(f"[Contiger/sharded] phantom closure round {rnd + 1}: "
+                f"{n_new} nodes added")
+        else:
+            raise RuntimeError(
+                f"sharded phantom closure not converged after {max_rounds} "
+                f"rounds: the node set would silently diverge from reference "
+                f"candidate semantics; raise key_bits (hash collisions are "
+                f"pathologically dense)")
+
+    # ---- phase B ----------------------------------------------------------
+    with profiling.phase("contiger:mesh probe graph"):
+        parts, d = st.probe(specs, stores)
+        if int(d):
+            raise RuntimeError("sharded probe dropped routed queries: raise "
+                               "quota_slack")
+        ec, sjg, sog = (torch.cat(x).cpu().numpy().astype(np.int64)
+                        for x in list(zip(*parts))[:3])
+        node_counts = torch.cat([p[3] for p in parts])
+        valid = torch.cat([p[4] for p in parts])
+    del parts
+
+    # ---- combine chain rule on host (global numbering) --------------------
+    Npt = n * Cl
+    target = np.where(sjg >= 0, 2 * sjg + sog, -1)
+    flip_target = np.where(sjg >= 0, 2 * sjg + (1 - sog), -1)
+    # lanes with ecount != 1 carry summed indices that may point anywhere:
+    # clamp the gather; the ok rule masks them
+    ft = np.clip(flip_target, 0, 2 * Npt - 1)
+    ok = (ec == 1) & (target >= 0) & (ec[ft] == 1)
+    a_idx = np.arange(2 * Npt, dtype=np.int64)
+    ok &= (target != a_idx) & (target != (a_idx ^ 1))
+    chain_next = np.where(ok, target, -1).astype(np.int32)
+
+    real = valid.cpu().numpy()
+    log(f"[Contiger/sharded] {int(real.sum())} distinct solid k-mers over "
+        f"{n} shards (peak shard fill {n_peak}/{Cl})")
+    is_seed = (torch.cat([s.seed for s in stores]).cpu().numpy() != 0
+               if saw_seed_meta else None)
+    return contiger.finalize_unitigs(
+        torch.cat([s.hi for s in stores]), torch.cat([s.lo for s in stores]),
+        real, node_counts, chain_next, params, is_seed=is_seed)

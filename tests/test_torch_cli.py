@@ -76,10 +76,12 @@ def test_ser_byte_identical_to_reference_hot_loop(ref_count, workload,  # noqa: 
 
 
 def test_port_runs_without_jax(workload, tmp_path):  # noqa: F811
-    """With `import jax` made to fail, the port's CLI imports and counts,
-    its tools, profiling entry points and set operations run, and neither
-    jax nor the JAX package gets loaded."""
+    """With `import jax` made to fail, the port's CLI imports and counts
+    (single store and --mesh 2, the same bytes), its tools, profiling
+    entry points, the mesh layer's dry run and set operations run, and
+    neither jax nor the JAX package gets loaded."""
     out = tmp_path / "nojax.ser"
+    mesh_out = tmp_path / "nojax_mesh.ser"
     code = textwrap.dedent(f"""
         import sys
         sys.modules["jax"] = None  # any `import jax` now raises
@@ -90,7 +92,17 @@ def test_port_runs_without_jax(workload, tmp_path):  # noqa: F811
         # the tools and the library surface off the main path
         from sh_assembly_tpu_torch.cli import compare_contigs, cqf_dump, minia
         from sh_assembly_tpu_torch.ops import blocksort_cuda, spectrum
-        from sh_assembly_tpu_torch.profile import blocksort, kernels, sort
+        from sh_assembly_tpu_torch.profile import blocksort, kernels, mesh, sort
+        # the mesh layer, its CLI path and its entry points
+        from sh_assembly_tpu_torch.parallel import collectives, driver, \
+            dryrun, multihost, sharded, sharded_contiger
+        rc = cqf_denoise.main({_argv(workload, mesh_out, {"flags": ["--deNoise", "0"]})!r}
+                              + ["--device", "cpu", "--mesh", "2"])
+        assert rc == 0, rc
+        assert open({str(out)!r}, "rb").read() == open({str(mesh_out)!r}, "rb").read()
+        assert dryrun.dryrun_multichip(2, "cpu")["unitigs"] > 0
+        assert mesh.main(["--device", "cpu", "--n", "2", "--log2-capacity",
+                          "14", "--rows-per-shard", "8", "--reps", "1"]) == 0
         assert cqf_dump.main([{str(out)!r}, "--meta-only"]) == 0
         assert blocksort.main(["--device", "cpu", "--log2-n", "12",
                                "--log2-w", "8"]) == 0

@@ -1,7 +1,8 @@
 """Kernels K1 (csrc/merge_dedup.cu), K2 (csrc/count_join.cu), K3
 (csrc/merge128.cu) and K4 (csrc/block_sort.cu) against their plain PyTorch
-versions on the GPU, bitwise, and the counting stage, the Contiger, the
-set operations and the traveled queries on CUDA against the CPU path.
+versions on the GPU, bitwise, and the counting stage, the Contiger, their
+sharded forms (4 shards on the card), the set operations and the traveled
+queries on CUDA against the CPU path.
 
 Marked ``cuda``: without a GPU every test here skips.  On a machine with
 one (no JAX needed; the repository's conftest imports JAX, so skip it):
@@ -238,6 +239,69 @@ def test_contiger_cuda_matches_cpu(gpu, k):
     (ac, lc), (ag, lg) = out["cpu"], out[str(gpu)]
     assert lc == (0, 0)
     assert lg[0] > 0 and lg[1] > 0
+    assert ac.n == ag.n > 0
+    for f in ("seq_codes", "offsets", "med", "after_ptr", "after_val",
+              "before_ptr", "before_val"):
+        np.testing.assert_array_equal(getattr(ac, f), getattr(ag, f), f)
+
+
+def _mesh_reads(tmp_path):
+    chip_smoke.write_fastq(str(tmp_path / "reads.fastq"), genome_len=20_000,
+                           n_reads=6000, read_len=100, sub_rate=0.01,
+                           n_rate=0.001, seed=3)
+    return [str(tmp_path / "reads.fastq")]
+
+
+def _mesh_sizing(k, rounds, threshold):
+    return cfg.CounterSizing(
+        k=k, qb=18, hb=26, num_true_kmers=0, num_false_kmers=0,
+        n_true_kmers=1, num_deNoise=rounds, ndistinct_for_deNoise=threshold,
+        end_deNoise=True, fr=0.0)
+
+
+def test_sharded_counter_cuda_matches_cpu(gpu, tmp_path):
+    """count_sharded over 4 shards, deNoise sweeps mid-stream: the same
+    keys, counts and stats on the card (through K1) as on the CPU."""
+    from sh_assembly_tpu_torch.parallel import driver
+
+    files = _mesh_reads(tmp_path)
+    bc = cfg.BatchConfig(reads_per_batch=512, max_read_len=104)
+    out = {}
+    for dev in ("cpu", gpu):
+        before = merge_cuda.LAUNCHES
+        _, _, keys, counts, stats = driver.count_sharded(
+            files, _mesh_sizing(31, 2, 20_000), n_mesh=4, batch_cfg=bc,
+            super_batch=2, device=dev)
+        out[str(dev)] = (keys, counts, stats, merge_cuda.LAUNCHES - before)
+    (kc, cc, sc_, lc), (kg, cg, sg, lg) = out["cpu"], out[str(gpu)]
+    np.testing.assert_array_equal(kc, kg)
+    np.testing.assert_array_equal(cc, cg)
+    assert sc_ == sg and sg["sweeps"] == 3 and sg["merges"] > 3
+    assert lc == 0 and lg >= 4 * (sg["merges"] + sg["sweeps"])
+
+
+def test_sharded_contiger_cuda_matches_cpu(gpu, tmp_path):
+    """contiger_sharded over 4 shards from one counted spectrum: the same
+    unitig arrays on the card (through K2 and K3) as on the CPU."""
+    from sh_assembly_tpu_torch.parallel import driver
+
+    files = _mesh_reads(tmp_path)
+    k = 31
+    bc = cfg.BatchConfig(reads_per_batch=512, max_read_len=104)
+    sizing = _mesh_sizing(k, 0, 1 << 62)
+    _, _, keys, counts, _ = driver.count_sharded(
+        files, sizing, n_mesh=4, batch_cfg=bc, super_batch=2, device="cpu")
+    out = {}
+    for dev in ("cpu", gpu):
+        sc = driver.make_counter(sizing, 4, bc, device=dev)
+        before = (join_cuda.LAUNCHES, merge128_cuda.LAUNCHES)
+        au = driver.contiger_sharded(
+            sc, sc.from_host(keys, counts), files,
+            cfg.ContigerParams(k=k), batch_cfg=bc)
+        out[str(dev)] = (au, (join_cuda.LAUNCHES - before[0],
+                              merge128_cuda.LAUNCHES - before[1]))
+    (ac, lc), (ag, lg) = out["cpu"], out[str(gpu)]
+    assert lc == (0, 0) and lg[0] > 0 and lg[1] > 0
     assert ac.n == ag.n > 0
     for f in ("seq_codes", "offsets", "med", "after_ptr", "after_val",
               "before_ptr", "before_val"):

@@ -165,3 +165,38 @@ def test_build_spectrum_returns_no_spare():
     assert stats.merges >= 3 and stats.sweeps >= 1
     assert spec.spare is None and spec.spare_dirty == 0
     assert bool((spec.store[spec.n_main:] == bits.SENTINEL).all())
+
+
+def test_merge_without_room_to_sort_drops_the_spare(monkeypatch):
+    """Where the buffer sort would not fit beside the spare, the merge lets
+    the spare go before it sorts (in the Spectrum it was handed too) and
+    folds into a fresh store: the same state as with the spare, and the
+    store it read becomes the next spare as before."""
+    rng = np.random.default_rng(9)
+    kb = 30
+    keys = np.unique(rng.integers(0, 1 << kb, size=600, dtype=np.uint64))
+    blocks = [torch.from_numpy(rng.choice(keys, size=500).view(np.int64))
+              for _ in range(3)]
+
+    def chain():
+        # a fresh start each time: folds write into the stores they left
+        s = sp.from_host(keys, np.ones(len(keys), np.int64), 2048, 1024, kb,
+                         device=DEV)
+        for b in blocks:
+            s = sp.merge(sp.insert(s, b), kb)
+        return s
+
+    roomy = chain()
+    assert roomy.spare is not None
+    monkeypatch.setattr(sp, "_room_to_sort", lambda spec: False)
+    s = chain()
+    for f in ("n_main", "n_buf", "ndistinct"):
+        assert getattr(s, f) == getattr(roomy, f)
+    assert torch.equal(s.store, roomy.store) and int(s.nelts) == \
+        int(roomy.nelts)
+    assert s.spare is not None
+    before = sp.insert(s, blocks[0])
+    spare = before.spare
+    after = sp.merge(before, kb)
+    assert before.spare is None and after.store is not spare
+    _spare_is_sound(after, before)

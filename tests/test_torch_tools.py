@@ -105,6 +105,36 @@ def test_compare_contigs_matches_jax_cli(files, capsys, pair, rc):
     assert len(ref.out.splitlines()) == 4
 
 
+@pytest.mark.parametrize("k", [1, 21, 32, 33, 47, 64])
+def test_compare_contigs_kmer_sets_match_string_sets(k):
+    """The packed k-mer sets of ``cli.compare_contigs`` against the JAX
+    tool's sets of strings (N-free windows, the smaller strand), with
+    repeats, reverse complements, Ns and sequences shorter than k; and
+    the sort of the rows themselves taken when two rows mix to one
+    word."""
+    from sh_assembly_tpu.utils import dna as jdna
+
+    rng = np.random.default_rng(k)
+    seqs = ["".join("ACGTN"[c] for c in rng.choice(
+        5, size=int(rng.integers(1, 300)), p=[0.245] * 4 + [0.02]))
+        for _ in range(12)]
+    seqs += [jdna.revcomp(s) for s in seqs[:3]] + seqs[3:5]
+
+    def ref(ss):
+        return {jdna.canonical(s[i:i + k]) for s in ss
+                for i in range(len(s) - k + 1) if "N" not in s[i:i + k]}
+
+    got = compare_contigs.canonical_kmers(seqs, k)
+    assert len(got) == len(ref(seqs))
+    assert compare_contigs.shared_rows(
+        got, compare_contigs.canonical_kmers(seqs[::2], k)) == \
+        len(ref(seqs) & ref(seqs[::2]))
+    # rows (0, C) and (1, 0) mix to the same word C
+    mix = np.uint64(0x9E3779B97F4A7C15)
+    rows = np.array([[1, 0], [0, mix], [1, 0], [0, mix]], np.uint64)
+    assert compare_contigs.shared_rows(rows[:2], rows[2:]) == 2
+
+
 def test_profile_blocksort_main_on_cpu(capsys):
     assert pblocksort.main(["--device", "cpu", "--log2-n", "14",
                             "--log2-w", "10"]) == 0
