@@ -91,11 +91,36 @@ exits non-zero without printing a result:
      and cli.minia's contigs within 10% of the genome, with phase
      breakdowns, peaks and K1-K3 launches; (d) profile.mesh (routed
      against one shard alone, n = 8) and dryrun_multichip(8).
+ 11. the multi-process mesh (``collectives.Distributed`` over
+     torch.distributed; workers spawned from this file): (a) phase 7's
+     reads counted by 2 processes x 2 shards over gloo on the one card,
+     each process feeding its half of every global batch through
+     ``driver.count_stream``, every shard's whole state bitwise equal to
+     the in-process mesh of 4 (``driver.count_sharded``); (b) the
+     Contiger's collective steps (``sharded_contiger.shard_parts``) on
+     phase 3's reads and phase 10a's .ser at 2 x 2 over gloo, the stores
+     and probe parts bitwise equal to the in-process mesh's, and the host
+     tail (``finish_parts``) on them in this process byte-identical to
+     10a's contiger --mesh 4; (c) the NCCL branch: one process of 4 shards
+     counts phase 3's reads and runs (b)'s steps, bitwise as well.  Each
+     process's wall, phases, peak memory and kernel launches are printed.
+
+ 12. the profiling entry points of the counting hot path and the Contiger
+     at their defaults: profile.entry (one fused counting step),
+     profile.hot (hash, append, the buffer sorts and K1 at 2^28 slots),
+     profile.collect (node collection under cProfile, with its device
+     share) and profile.stage2 (graph probes and contraction of 2^24
+     nodes against a 2^28-slot spectrum), each printing what it measured.
+
+``python3 chip_smoke.py --nccl-processes N`` runs phases 0, 1 and 11a
+alone at N processes x 1 shard over NCCL, a card each (N cards).
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels: launches on the path that runs each (phase 7 for K1-K3,
 phase 8's profiling entry point for K4, which the main path never
-launches), launches on the mesh path (phase 10c), times, and each
+launches), launches on the mesh path (phase 10c), launches summed over
+the processes of the multi-process path (mp_launches: 11a for K1, 11b for
+K2 and K3), times, and each
 kernel's bound, the least time the card could
 take, computed from this run's shapes and results: the larger of the
 bytes moved (each input read once, the live result written once) over
@@ -1670,6 +1695,377 @@ def phase10_mesh():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the multi-process mesh.  The workers are spawned processes that
+# import this file; each one runs its tasks and saves what the parent checks.
+
+MP_GROUP_TIMEOUT = 300  # seconds a collective waits for a peer
+MP_JOIN_TIMEOUT = 900  # seconds the parent waits for its workers
+
+
+def spectrum_state(spec) -> dict:
+    """A shard's whole counting state: store and buffer (past n_buf as
+    sentinels) as int64 words, and its four counters."""
+    buf = spec.buf.clone()
+    buf[spec.n_buf:] = -1
+    return dict(store=spec.store.cpu().numpy(), buf=buf.cpu().numpy(),
+                n_main=int(spec.n_main), n_buf=int(spec.n_buf),
+                ndistinct=int(spec.ndistinct), nelts=int(spec.nelts))
+
+
+def _rows_of(batch, rank: int, world: int):
+    """This process's rows of a global batch (its share, process-major)."""
+    from sh_assembly_tpu_torch.io import fastq
+
+    h = batch.lengths.shape[0] // world
+    cut = slice(rank * h, (rank + 1) * h)
+    seed = None if batch.seed_col is None else batch.seed_col[cut]
+    if isinstance(batch, fastq.PackedBatch):
+        return fastq.PackedBatch(batch.packed[cut], batch.nmask[cut],
+                                 batch.lengths[cut], h, seed)
+    return fastq.Batch(batch.codes[cut], batch.lengths[cut], h, seed)
+
+
+def _mp_count(mesh, rank, world, files, sizing, rows, L, S, capacity,
+              buf_capacity, threads=16):
+    """Count the files' reads: every process reads them in global batches
+    of ``rows`` and feeds its share through ``driver.count_stream`` (the
+    scan, merge and sweep cadence of ``driver.count_sharded``)."""
+    import numpy as np
+
+    from sh_assembly_tpu_torch.io import fastq, native
+    from sh_assembly_tpu_torch.parallel import driver, multihost, sharded
+
+    sc = sharded.ShardedCounter(mesh=mesh, k=sizing.k, key_bits=sizing.hb,
+                                local_capacity=capacity,
+                                local_buf_capacity=buf_capacity)
+    h = rows // world
+    mine = (_rows_of(b, rank, world) for b in native.batches_from_files(
+        files, sizing.k, "f", rows, L, n_threads=threads))
+
+    def empty():
+        return fastq.Batch(np.full((h, L), 5, np.uint8),
+                           np.zeros(h, np.int32), 0)
+
+    specs, stats = driver.count_stream(
+        sc, multihost.coordinated_stream(mine, mesh, empty), sizing, h, L, S)
+    out = {f"{k}": v for k, v in stats.items()}
+    for gid, spec in zip(mesh.shard_ids, specs):
+        for f, v in spectrum_state(spec).items():
+            out[f"s{gid}_{f}"] = v
+    return out
+
+
+def _mp_contig(mesh, rank, world, ser, files, params, capacity, rows, Lp,
+               threads=16):
+    """The Contiger's collective steps (``shard_parts``) on a .ser
+    spectrum: every process reads the reads in global batches and feeds its
+    share."""
+    from sh_assembly_tpu_torch.formats import cqf_ser
+    from sh_assembly_tpu_torch.io import native
+    from sh_assembly_tpu_torch.parallel import multihost, sharded, \
+        sharded_contiger
+
+    meta, keys, counts, trav = cqf_ser.read_ser(ser)
+    sc = sharded.ShardedCounter(mesh=mesh, k=params.k, key_bits=meta.key_bits,
+                                local_capacity=capacity,
+                                local_buf_capacity=1 << 10)
+    specs = sc.from_host(keys, counts.astype("int64"), traveled=trav)
+    mine = (_rows_of(b, rank, world) for b in native.packed_batches_from_files(
+        files, params.k, "f", rows, Lp, n_threads=threads))
+    parts, saw = sharded_contiger.shard_parts(
+        sc, specs, multihost.coordinated_stream(mine, mesh, None), params)
+    out = dict(saw=saw)
+    for gid, part in zip(mesh.shard_ids, parts):
+        for f in sharded_contiger.ShardPart.__dataclass_fields__:
+            out[f"s{gid}_{f}"] = getattr(part, f).cpu().numpy()
+    return out
+
+
+MP_TASKS = dict(count=_mp_count, contig=_mp_contig)
+
+
+def _mp_worker(rank, world, local, backend, store, out_dir, tasks):
+    """One process of a phase 11 job on card rank modulo the cards seen:
+    joins the group, builds the mesh (a group of one gets the back end
+    itself, so that one process can drive the NCCL branch), runs its tasks
+    and saves each task's results, kernel launches, phases, wall and peak
+    device memory."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from sh_assembly_tpu_torch.parallel import collectives, multihost
+    from sh_assembly_tpu_torch.utils import profiling
+
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        backend, init_method=f"file://{store}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=MP_GROUP_TIMEOUT))
+    mesh = collectives.Distributed(local, dev) if world == 1 else \
+        multihost.make_global_mesh(dev, local=local)
+    for name, kw in tasks:
+        _reset_launches()
+        profiling.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        res = MP_TASKS[name](mesh, rank, world, **kw)
+        torch.cuda.synchronize()
+        res.update(wall=time.time() - t0, peak=torch.cuda.max_memory_allocated(),
+                   **{f"launches_{k}": v for k, v in _launches().items()},
+                   **{f"phase_{k}": v.seconds
+                      for k, v in profiling.GLOBAL.stats.items()})
+        np.savez(os.path.join(out_dir, f"{name}_{rank}.npz"), **res)
+    dist.destroy_process_group()
+
+
+def mp_spawn(world: int, local: int, backend: str, tasks, tag: str):
+    """Run tasks in ``world`` spawned processes -> {task: [results of each
+    rank]}.  A failed worker raises here with its traceback (the others are
+    ended); workers still running after MP_JOIN_TIMEOUT are ended and
+    raise."""
+    import torch
+    import torch.multiprocessing as mp
+
+    out = os.path.join(WORK, f"mp_{tag}")
+    os.makedirs(out, exist_ok=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # each worker has its own allocator
+    t0 = time.time()
+    ctx = mp.spawn(_mp_worker, args=(world, local, backend,
+                                     os.path.join(out, "store"), out, tasks),
+                   nprocs=world, join=False)
+    while not ctx.join(timeout=5):
+        if time.time() - t0 > MP_JOIN_TIMEOUT:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError(f"phase 11 {tag}: workers still running "
+                                 f"after {MP_JOIN_TIMEOUT} s")
+    print(f"  {tag}: {world} process(es) x {local} shard(s) over {backend} "
+          f"in {time.time() - t0:.1f} s", flush=True)
+    return {name: [dict(np.load(os.path.join(out, f"{name}_{r}.npz")))
+                   for r in range(world)] for name, _ in tasks}
+
+
+def _merged(results) -> dict:
+    return {k: v for r in results for k, v in r.items()}
+
+
+def _check_states(results, specs, what: str) -> None:
+    """Every shard's dumped state equals the in-process mesh's."""
+    got = _merged(results)
+    for gid, spec in enumerate(specs):
+        for f, v in spectrum_state(spec).items():
+            if not np.array_equal(got[f"s{gid}_{f}"], v):
+                raise AssertionError(f"{what}: shard {gid} {f} differs from "
+                                     f"the in-process mesh's")
+
+
+def _check_parts(results, parts, what: str) -> list:
+    """Every shard's dumped store and probe part equals the in-process
+    mesh's -> the dumped parts, in shard order, on the parts' device."""
+    import torch
+
+    from sh_assembly_tpu_torch.parallel import sharded_contiger
+
+    got = _merged(results)
+    fields = list(sharded_contiger.ShardPart.__dataclass_fields__)
+    loaded = []
+    for gid, part in enumerate(parts):
+        for f in fields:
+            if not np.array_equal(got[f"s{gid}_{f}"],
+                                  getattr(part, f).cpu().numpy()):
+                raise AssertionError(f"{what}: shard {gid} {f} differs from "
+                                     f"the in-process mesh's")
+        loaded.append(sharded_contiger.ShardPart(*(
+            torch.from_numpy(got[f"s{gid}_{f}"]).to(part.hi.device)
+            for f in fields)))
+    return loaded
+
+
+def _mp_report(results, tag: str) -> dict:
+    """Print each process's wall, phases, peak and launches -> launches
+    summed over the processes."""
+    total = {}
+    for rank, r in enumerate(results):
+        phases = ", ".join(f"{k[6:]} {float(v):.2f} s" for k, v in
+                           sorted(r.items()) if k.startswith("phase_"))
+        launches = {k[9:]: int(v) for k, v in r.items()
+                    if k.startswith("launches_")}
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        print(f"    {tag} rank {rank}: wall {float(r['wall']):.2f} s, peak "
+              f"{int(r['peak']) / 2**30:.2f} GiB, launches {launches}; "
+              f"{phases}")
+    return total
+
+
+def _genome_reads() -> str:
+    d = os.path.join(WORK, "genome")
+    if not os.path.exists(os.path.join(d, "reads.fastq")):
+        os.makedirs(d, exist_ok=True)
+        write_fastq(os.path.join(d, "reads.fastq"), **GENOME)
+    return os.path.join(d, "reads.fastq")
+
+
+def _count_setup(flags, files, n: int):
+    """The CLI's sizing of ``flags`` and the in-process mesh's counter of
+    n shards for it (``driver.make_counter``)."""
+    from sh_assembly_tpu_torch import config as cfg
+    from sh_assembly_tpu_torch.cli import cqf_denoise
+    from sh_assembly_tpu_torch.parallel import driver
+
+    sizing = cqf_denoise.counter_sizing(cqf_denoise.make_parser().parse_args(
+        flags + ["-i", "ReadFiles.txt"]))
+    bc = cfg.BatchConfig()
+    sc = driver.make_counter(sizing, n, bc, device="cuda")
+    kw = dict(files=files, sizing=sizing, rows=bc.reads_per_batch,
+              L=bc.max_read_len, S=4, capacity=sc.local_capacity,
+              buf_capacity=sc.local_buf_capacity)
+    return sizing, bc, kw
+
+
+def phase11a_count(world: int = 2, local: int = 2, backend: str = "gloo"):
+    """11a: phase 7's reads counted by ``world`` processes of ``local``
+    shards each, every shard bitwise equal to the in-process mesh's.
+    Returns the K1 launches summed over the processes."""
+    from sh_assembly_tpu_torch.parallel import driver
+
+    n = world * local
+    files = [_genome_reads()]
+    sizing, bc, kw = _count_setup(GENOME_FLAGS, files, n)
+    _reset_launches()
+    t0 = time.time()
+    _, specs, _, _, stats = driver.count_sharded(
+        files, sizing, fmode="f", n_mesh=n, batch_cfg=bc, n_threads=16,
+        device="cuda")
+    print(f"  11a in-process mesh n={n}: {stats}, {time.time() - t0:.2f} s, "
+          f"launches {_launches()}", flush=True)
+    res = mp_spawn(world, local, backend, [("count", kw)],
+                   f"11a_{backend}")["count"]
+    _check_states(res, specs, f"11a {world}x{local} {backend}")
+    for r in res:
+        if {k: int(r[k]) for k in stats} != stats:
+            raise AssertionError(f"11a: a process counted {r} against "
+                                 f"{stats}")
+    launches = _mp_report(res, "11a")
+    if not launches["merge_dedup"]:
+        raise AssertionError("11a: K1 never launched in the workers")
+    print(f"  11a every shard's whole state bitwise equal to the in-process "
+          f"mesh's; K1 launches over the processes "
+          f"{launches['merge_dedup']}", flush=True)
+    del specs
+    return launches
+
+
+def phase11_mesh():
+    """The multi-process mesh on the card (``collectives.Distributed``):
+    (a) phase 7's reads counted by 2 processes x 2 shards over gloo on
+    the one card; (b) the Contiger's collective steps on phase 3's reads
+    at 2 x 2 over gloo, and the host tail in this process against phase
+    10a's ``contiger --mesh 4``; (c) the NCCL branch: one process of 4
+    shards counts phase 3's reads and runs (b)'s steps.  Every shard is
+    bitwise equal to the in-process mesh of 4 fed the same global steps.
+    Returns the kernel launches summed over 11a's and 11b's processes."""
+    import torch
+
+    from sh_assembly_tpu_torch import config as cfg
+    from sh_assembly_tpu_torch.formats import cqf_ser
+    from sh_assembly_tpu_torch.io import native
+    from sh_assembly_tpu_torch.parallel import driver, sharded_contiger
+
+    print("== phase 11: the multi-process mesh (torch.distributed)",
+          flush=True)
+    launches = phase11a_count()
+
+    # 11b: the Contiger's collective steps at 2 x 2 over gloo
+    d = os.path.join(WORK, "parity")
+    files = [os.path.join(d, "reads.fastq")]
+    ser, fa = os.path.join(d, "mesh8_cpu.ser"), os.path.join(d,
+                                                             "mesh4_cuda.fa")
+    if not os.path.exists(fa):  # phase 10a's files, when run alone
+        os.makedirs(d, exist_ok=True)
+        if not os.path.exists(files[0]):
+            write_fastq(files[0], **PARITY)
+        _run_cli(PARITY_FLAGS + ["-i", os.path.join(d, "ReadFiles.txt"),
+                                 "-o", ser, "--mesh", "8", "--device", "cpu"])
+        _run_cli(["-k", PARITY_FLAGS[1], "-i", os.path.join(d,
+                                                            "ReadFiles.txt"),
+                  "-c", ser, "--mesh", "4", "-o", fa, "--device", "cuda"],
+                 cli="contiger")
+    meta, keys, counts, trav = cqf_ser.read_ser(ser)
+    params = cfg.ContigerParams(k=int(PARITY_FLAGS[1]))
+    bc = cfg.BatchConfig()
+    Lp = (bc.max_read_len + 7) // 8 * 8
+    sizing = cfg.CounterSizing(
+        k=params.k, qb=meta.qb, hb=meta.key_bits, num_true_kmers=0,
+        num_false_kmers=0, n_true_kmers=max(len(keys), 1), num_deNoise=0,
+        ndistinct_for_deNoise=1 << 62, end_deNoise=False, fr=0.0)
+    sc = driver.make_counter(sizing, 4, bc, device="cuda")
+    specs = sc.from_host(keys, counts.astype("int64"), traveled=trav)
+    ref, saw = sharded_contiger.shard_parts(
+        sc, specs, native.packed_batches_from_files(
+            files, params.k, "f", bc.reads_per_batch, Lp, n_threads=16),
+        params)
+    del specs
+    contig_kw = dict(ser=ser, files=files, params=params,
+                     capacity=sc.local_capacity, rows=bc.reads_per_batch,
+                     Lp=Lp)
+    res = mp_spawn(2, 2, "gloo", [("contig", contig_kw)], "11b")["contig"]
+    parts = _check_parts(res, ref, "11b 2x2 gloo")
+    got = _mp_report(res, "11b")
+    if not (got["count_join"] and got["merge128"]):
+        raise AssertionError(f"11b: K2 or K3 never launched: {got}")
+    launches.update(count_join=got["count_join"], merge128=got["merge128"])
+    out = os.path.join(d, "mp_unitigs.fa")
+    sharded_contiger.finish_parts(parts, bool(res[0]["saw"]),
+                                  params).write_fasta(out)
+    if open(out, "rb").read() != open(fa, "rb").read():
+        raise AssertionError("11b: the unitigs.fa finished from the "
+                             "processes' parts differs from contiger --mesh "
+                             "4's")
+    print(f"  11b stores and probe parts bitwise equal to the in-process "
+          f"mesh's; unitigs.fa finished from them byte-identical to phase "
+          f"10a's contiger --mesh 4 ({os.path.getsize(fa)} bytes); K2 "
+          f"{got['count_join']}, K3 {got['merge128']} launches", flush=True)
+    del parts
+
+    # 11c: the NCCL branch, one process of 4 shards on the card
+    _, cbc, count_kw = _count_setup(PARITY_FLAGS, files, 4)
+    _, cspecs, _, _, _ = driver.count_sharded(
+        files, count_kw["sizing"], fmode="f", n_mesh=4, batch_cfg=cbc,
+        n_threads=16, device="cuda")
+    res = mp_spawn(1, 4, "nccl", [("count", count_kw),
+                                  ("contig", contig_kw)], "11c")
+    _check_states(res["count"], cspecs, "11c nccl count")
+    _check_parts(res["contig"], ref, "11c nccl contig")
+    _mp_report(res["count"], "11c count")
+    _mp_report(res["contig"], "11c contig")
+    print("  11c NCCL (1 x 4): every shard's counting state and Contiger "
+          "part bitwise equal to the in-process mesh's", flush=True)
+    del cspecs, ref
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase12_profiles():
+    """The profiling entry points of the counting hot path and the
+    Contiger at their defaults (``profile.{entry,hot,collect,stage2}``)."""
+    from sh_assembly_tpu_torch.profile import collect, entry, hot, stage2
+
+    print("== phase 12: profile.entry, .hot, .collect and .stage2", flush=True)
+    for name, mod in (("entry", entry), ("hot", hot), ("collect", collect),
+                      ("stage2", stage2)):
+        rc, _, wall = _run_main(mod.main, [])
+        if rc != 0:
+            raise AssertionError(f"profile.{name} exited {rc}")
+        print(f"  profile.{name} ({wall:.1f} s): {getattr(mod, 'LAST', {})}",
+              flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1691,6 +2087,8 @@ def main() -> int:
         err4, launches["block_sort"], timing["block_sort"] = phase8_k4(dev)
         phase9_library(dev)
         mesh = phase10_mesh()
+        mp = phase11_mesh()
+        phase12_profiles()
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     loaded = [m for m in sys.modules
@@ -1714,7 +2112,7 @@ def main() -> int:
         "source": f"sh_assembly_tpu_torch/csrc/{name}.cu",
         "replaces": where, "launches": launches[name],
         "launches_in": path, "mesh_launches": mesh.get(name, 0),
-        "max_abs_err": e, **timing[t]}
+        "mp_launches": mp.get(name, 0), "max_abs_err": e, **timing[t]}
         for name, t, where, e, path in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1722,6 +2120,33 @@ def main() -> int:
     return 0
 
 
+def main_nccl(world: int) -> int:
+    """``--nccl-processes N``: phase 11a alone at N processes x 1 shard
+    over NCCL, one card each (needs N cards)."""
+    import torch
+
+    phase0_device()
+    sys.path.insert(0, REPO)
+    if torch.cuda.device_count() < world:
+        raise SystemExit(f"chip_smoke: --nccl-processes {world} needs "
+                         f"{world} cards, {torch.cuda.device_count()} seen")
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(WORK)
+    try:
+        phase1_build()
+        print(f"== phase 11a over NCCL: {world} processes x 1 shard, a card "
+              f"each", flush=True)
+        launches = phase11a_count(world, 1, "nccl")
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+    print(json.dumps({"ok": True, "mp_launches": launches, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 if __name__ == "__main__":
     sys.modules["jax"] = None  # the port runs without JAX: make sure of it
+    if sys.argv[1:2] == ["--nccl-processes"]:
+        sys.exit(main_nccl(int(sys.argv[2])))
     sys.exit(main())

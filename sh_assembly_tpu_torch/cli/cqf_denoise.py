@@ -76,6 +76,20 @@ def resolve_device(name: str) -> torch.device:
     return dev
 
 
+def counter_sizing(args, error_profile=None) -> cfg.CounterSizing:
+    """The counter's sizing from the parsed flags."""
+    return cfg.size_counter(
+        k=args.k,
+        n_true_kmers=args.trueKmer,
+        total_kmers=args.total_kmers,
+        alpha=args.alpha,
+        error_profile=error_profile,
+        fr=args.fr,
+        num_deNoise=args.deNoise,
+        end_deNoise=args.endDeNoise,
+    )
+
+
 def main(argv: list[str] | None = None) -> int:
     args = make_parser().parse_args(argv)
     device = resolve_device(args.device)
@@ -88,16 +102,7 @@ def main(argv: list[str] | None = None) -> int:
         with open(args.errorProfile) as f:
             error_profile = [float(x) for x in f.read().split()]
 
-    sizing = cfg.size_counter(
-        k=args.k,
-        n_true_kmers=args.trueKmer,
-        total_kmers=args.total_kmers,
-        alpha=args.alpha,
-        error_profile=error_profile,
-        fr=args.fr,
-        num_deNoise=args.deNoise,
-        end_deNoise=args.endDeNoise,
-    )
+    sizing = counter_sizing(args, error_profile)
     output = args.output or f"k{args.k}.t{args.threads}.s{sizing.qb}.ser"
 
     log("CQF-deNoise settings:")

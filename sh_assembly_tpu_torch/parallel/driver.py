@@ -2,8 +2,11 @@
 
 Counterpart of ``sh_assembly_tpu/parallel/driver.py``, the entry the CLIs
 call with ``--mesh N``; key-range sharding, sorted quota all_to_all
-routing and the summed deNoise trigger are internal.  The port's mesh is
-``collectives.InProcess``: n shards on one device, one process.
+routing and the summed deNoise trigger are internal.  The drivers' mesh
+is ``collectives.InProcess``: n shards on one device, one process.  Under
+a process group of more than one they refuse to start, and a
+multi-process job drives ``count_stream`` and
+``sharded_contiger.shard_parts`` over ``multihost.make_global_mesh``.
 """
 
 from __future__ import annotations
@@ -28,6 +31,14 @@ def _pow2_at_least(x: int, lo: int = 1) -> int:
 def make_counter(sizing: cfg.CounterSizing, n_mesh: int | None,
                  batch_cfg: cfg.BatchConfig, super_batch: int = 4,
                  device="cuda") -> sharded.ShardedCounter:
+    if multihost.rank_and_world()[1] > 1:
+        raise ValueError(
+            "the mesh drivers and the --mesh CLIs run in one process, and "
+            "this one is in a process group of more than one (reference "
+            "fault 10: the JAX driver builds the global mesh and then fails "
+            "at its first scan); build the counter over "
+            "multihost.make_global_mesh and drive count_stream in every "
+            "process")
     mesh = sharded.make_mesh(n_mesh, device)
     n = mesh.n
     local_cap = _pow2_at_least(sizing.nslots // n, 1 << 12)
@@ -46,61 +57,33 @@ def make_counter(sizing: cfg.CounterSizing, n_mesh: int | None,
         local_capacity=local_cap, local_buf_capacity=local_buf)
 
 
-def count_sharded(
-    files: list[str],
-    sizing: cfg.CounterSizing,
-    fmode: str = "auto",
-    n_mesh: int | None = None,
-    batch_cfg: cfg.BatchConfig | None = None,
-    n_threads: int = 4,
-    super_batch: int = 4,
-    device="cuda",
-):
-    """Sharded counting over the mesh -> (counter, per-shard spectra,
-    global keys, counts, stats dict).
+def count_stream(sc: sharded.ShardedCounter, batches,
+                 sizing: cfg.CounterSizing, rows: int, L: int,
+                 super_batch: int = 4):
+    """The counting loop over this process's batches of ``rows`` x ``L``
+    (every process of the mesh the same number of them:
+    ``multihost.coordinated_stream``) -> (the spectra of the shards this
+    process holds, stats dict).
 
-    Streams this process's files and appends stacks of S batches per
-    routed scan (hash -> sorted quota all_to_all -> per-shard log append).
-    The host keeps the merge cadence: every scan appends S padded routed
-    blocks whatever the stack holds, and the shards merge (and sweep, when
-    the summed distinct count crosses the trigger) before a scan that
-    would not fit.
+    Appends stacks of S batches per routed scan (hash -> sorted quota
+    all_to_all -> per-shard log append).  The host keeps the merge
+    cadence: every scan appends S padded routed blocks whatever the stack
+    holds, and the shards merge (and sweep, when the summed distinct count
+    crosses the trigger) before a scan that would not fit.  Ends with the
+    final merge, the trigger and the end-of-stream sweep.
     """
-    batch_cfg = batch_cfg or cfg.BatchConfig()
-    sc = make_counter(sizing, n_mesh, batch_cfg, super_batch=super_batch,
-                      device=device)
-    n = sc.n_shards
-    log(f"[mesh] counting over {n} shards on {sc.device} "
-        f"(local capacity 2^{int(np.log2(sc.local_capacity))}, "
-        f"local buffer 2^{int(np.log2(sc.local_buf_capacity))})")
-    B, L = batch_cfg.reads_per_batch, batch_cfg.max_read_len
-    if B % n:
-        raise ValueError(f"reads_per_batch {B} not divisible by mesh {n}")
-
     S = super_batch
     specs = sc.init()
     rounds = int(sizing.num_deNoise)
     threshold = int(sizing.ndistinct_for_deNoise)
 
-    from ..io import native
-
-    local = native.batches_from_files(
-        multihost.partition_files(files), sizing.k, fmode, B, L,
-        n_threads=n_threads)
-
-    def empty_batch():
-        return fastq.Batch(
-            np.full((B, L), 5, np.uint8), np.zeros(B, np.int32), 0)
-
-    stream = multihost.coordinated_stream(local, sc.mesh, empty_batch)
-
     t0 = time.time()
-    stack_c = np.full((S, B, L), 5, np.uint8)
-    stack_l = np.zeros((S, B), np.int32)
+    stack_c = np.full((S, rows, L), 5, np.uint8)
+    stack_l = np.zeros((S, rows), np.int32)
     fill = n_batches = dropped = merges = 0
     # every scan appends a fixed routed block per shard and step, so the
     # host knows each shard's fill without asking the device
-    routed_step = sc.routed_per_step(B // n, L)
+    routed_step = sc.routed_per_step(rows // len(sc.mesh.shard_ids), L)
     BCl = sc.local_buf_capacity
     host_nbuf = 0
 
@@ -127,15 +110,15 @@ def count_sharded(
                 merge_sweep("mid-stream")
             host_nbuf = 0
         with profiling.phase("count:mesh scan"):
-            specs, d = sc.append_scan(specs, *sc.shard_batch(stack_c,
-                                                             stack_l))
+            specs, d = sc.append_scan(specs, *multihost.shard_host_batch(
+                sc.mesh, stack_c, stack_l))
         host_nbuf += S * routed_step
         dropped += sum(d)
-        stack_c = np.full((S, B, L), 5, np.uint8)
-        stack_l = np.zeros((S, B), np.int32)
+        stack_c = np.full((S, rows, L), 5, np.uint8)
+        stack_l = np.zeros((S, rows), np.int32)
         fill = 0
 
-    for b in stream:
+    for b in batches:
         stack_c[fill] = b.codes
         stack_l[fill] = b.lengths
         fill += 1
@@ -144,6 +127,7 @@ def count_sharded(
             flush()
     if fill:
         flush()
+    dropped = sc.mesh.psum([dropped])  # agreed: every process raises
     if dropped:
         raise RuntimeError(
             f"sharded scan dropped {dropped} routed keys: raise quota_slack "
@@ -158,14 +142,54 @@ def count_sharded(
             specs = sc.merge(specs, drop_singletons=True)
             sweeps += 1
         nd, ne = sc.stats(specs)
-    with profiling.phase("count:mesh gather"):
-        keys, counts = sc.gather_spectrum(specs)
     log(f"[mesh] counted {ne} k-mers, {nd} distinct, {sweeps} sweeps, "
         f"{merges} merges, {n_batches} local batches in "
         f"{time.time() - t0:.1f}s")
-    return sc, specs, keys, counts, {
-        "kmers": ne, "distinct": nd, "sweeps": sweeps, "merges": merges,
-        "batches": n_batches}
+    return specs, {"kmers": ne, "distinct": nd, "sweeps": sweeps,
+                   "merges": merges, "batches": n_batches}
+
+
+def count_sharded(
+    files: list[str],
+    sizing: cfg.CounterSizing,
+    fmode: str = "auto",
+    n_mesh: int | None = None,
+    batch_cfg: cfg.BatchConfig | None = None,
+    n_threads: int = 4,
+    super_batch: int = 4,
+    device="cuda",
+):
+    """Sharded counting over the mesh -> (counter, per-shard spectra,
+    global keys, counts, stats dict): ``count_stream`` over the files'
+    batches, then the gather.
+    """
+    batch_cfg = batch_cfg or cfg.BatchConfig()
+    sc = make_counter(sizing, n_mesh, batch_cfg, super_batch=super_batch,
+                      device=device)
+    n = sc.n_shards
+    log(f"[mesh] counting over {n} shards on {sc.device} "
+        f"(local capacity 2^{int(np.log2(sc.local_capacity))}, "
+        f"local buffer 2^{int(np.log2(sc.local_buf_capacity))})")
+    B, L = batch_cfg.reads_per_batch, batch_cfg.max_read_len
+    if B % n:
+        raise ValueError(f"reads_per_batch {B} not divisible by mesh {n}")
+
+    from ..io import native
+
+    local = native.batches_from_files(
+        multihost.partition_files(files), sizing.k, fmode, B, L,
+        n_threads=n_threads)
+
+    def empty_batch():
+        return fastq.Batch(
+            np.full((B, L), 5, np.uint8), np.zeros(B, np.int32), 0)
+
+    specs, stats = count_stream(
+        sc, multihost.coordinated_stream(local, sc.mesh, empty_batch),
+        sizing, B, L, super_batch)
+    with profiling.phase("count:mesh gather"):
+        keys, counts = sc.gather_spectrum(specs)
+    return sc, specs, keys, counts, stats
 
 
 def contiger_sharded(

@@ -14,8 +14,12 @@ Every shard hashes its own rows of a read batch and owns a key range:
           count reaches the threshold and rounds remain
 
 A "mesh" is the shard count and its collective back end
-(``collectives.InProcess``: every shard on the one device it names).  A
-shard's state is a ``spectrum.Spectrum``; the counter passes a list of n.
+(``collectives.InProcess``: every shard on the one device it names;
+``collectives.Distributed``: ``local`` shards in each process of a
+``torch.distributed`` group).  A shard's state is a ``spectrum.Spectrum``;
+the counter passes a list with one for each shard this process holds
+(``mesh.shard_ids``), and every width and decision that crosses shards
+goes through a collective, so that every process takes the same branch.
 
 Keys are int64 words holding unsigned patterns (``ops/bits``): owners
 come from a logical shift, sorts and searches flip the top bit, and the
@@ -34,6 +38,14 @@ from ..ops import bits, nthash, spectrum as sp
 from . import collectives
 
 
+def check_mesh_size(n: int) -> None:
+    if n < 1 or n & (n - 1):
+        raise ValueError(
+            f"mesh size {n} is not a power of two: key-range ownership is "
+            f"by top key bits (shard_bits = log2(n)), a non-power-of-two "
+            f"mesh would silently leave shards idle; pass n_devices=2^k")
+
+
 def make_mesh(n_devices: int | None = None,
               device="cuda") -> collectives.InProcess:
     """n_devices key-range shards on ``device`` (None: one a device of its
@@ -42,12 +54,13 @@ def make_mesh(n_devices: int | None = None,
     if n is None:
         n = torch.cuda.device_count() if torch.device(device).type == \
             "cuda" else 1
-    if n < 1 or n & (n - 1):
-        raise ValueError(
-            f"mesh size {n} is not a power of two: key-range ownership is "
-            f"by top key bits (shard_bits = log2(n)), a non-power-of-two "
-            f"mesh would silently leave shards idle; pass n_devices=2^k")
+    check_mesh_size(n)
     return collectives.InProcess(n, device)
+
+
+def spans_processes(mesh) -> bool:
+    """Whether other processes hold some of the mesh's shards."""
+    return len(mesh.shard_ids) != mesh.n
 
 
 def _to_device(a, device: torch.device) -> torch.Tensor:
@@ -56,21 +69,23 @@ def _to_device(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-def split_rows(mesh: collectives.InProcess, a, axis: int = 0):
-    """Split a host or device array into n equal row blocks along ``axis``,
-    one per shard, on the mesh's device."""
-    n, B = mesh.n, a.shape[axis]
+def split_rows(mesh, a, axis: int = 0):
+    """Split this process's host or device array into equal row blocks
+    along ``axis``, one for each shard it holds, on the mesh's device."""
+    n, B = len(mesh.shard_ids), a.shape[axis]
     if B % n:
-        raise ValueError(f"batch rows {B} not divisible by mesh {n}")
+        raise ValueError(f"batch rows {B} not divisible by the {n} shards "
+                         f"of the mesh in this process")
     Bl = B // n
     idx = [slice(None)] * axis
     return [_to_device(a[tuple(idx + [slice(i * Bl, (i + 1) * Bl)])],
                        mesh.device) for i in range(n)]
 
 
-def shard_rows(mesh: collectives.InProcess, codes, lengths):
-    """Split a batch by rows into per-shard device tensors: codes [B, L]
-    and lengths [B], or stacks [S, B, L] and [S, B] (split on B)."""
+def shard_rows(mesh, codes, lengths):
+    """Split this process's batch by rows into per-shard device tensors:
+    codes [B, L] and lengths [B], or stacks [S, B, L] and [S, B] (split on
+    B)."""
     axis = codes.ndim - 2
     return split_rows(mesh, codes, axis), split_rows(mesh, lengths, axis)
 
@@ -94,18 +109,19 @@ def quota_rows(sorted_vals: torch.Tensor, bounds: torch.Tensor, Q: int,
     return rows, (cnt - Q).clamp(min=0).sum()
 
 
-def row_width(bounds: list[torch.Tensor], Q: int) -> int:
+def row_width(mesh, bounds: list[torch.Tensor], Q: int) -> int:
     """The narrowest row width that loses nothing the quota Q keeps: the
-    largest owner count over every shard's bounds, capped at Q."""
-    return min(Q, max(int((b[1:] - b[:-1]).max()) for b in bounds))
+    largest owner count over every shard's bounds in the mesh, capped at
+    Q (agreed, so that every process builds rows of one width)."""
+    return min(Q, mesh.pmax(int((b[1:] - b[:-1]).max()) for b in bounds))
 
 
 @dataclass(frozen=True)
 class ShardedCounter:
     """Counting over a fixed mesh; per-shard states are lists of
-    ``Spectrum``."""
+    ``Spectrum``, one for each shard this process holds."""
 
-    mesh: collectives.InProcess
+    mesh: collectives.InProcess | collectives.Distributed
     k: int
     key_bits: int
     local_capacity: int
@@ -124,12 +140,13 @@ class ShardedCounter:
         return self.mesh.device
 
     def init(self) -> list[sp.Spectrum]:
-        """Empty per-shard spectra."""
+        """Empty spectra for the shards this process holds."""
         return [sp.make(self.local_capacity, self.local_buf_capacity,
-                        self.device) for _ in range(self.n_shards)]
+                        self.device) for _ in self.mesh.shard_ids]
 
     def shard_batch(self, codes, lengths):
-        """A host batch split by rows across the shards (``shard_rows``)."""
+        """This process's batch split by rows across its shards
+        (``shard_rows``)."""
         return shard_rows(self.mesh, codes, lengths)
 
     # -- per-shard pieces ---------------------------------------------------
@@ -145,12 +162,14 @@ class ShardedCounter:
         o = bits.srl(keys, self.key_bits - self.shard_bits)
         return torch.where(keys == -1, self.n_shards, o)
 
-    def _merge(self, spec: sp.Spectrum, drop_singletons=False):
-        """A shard's fold.  A shard whose store overflows raises, as the
-        single-device counter does (the JAX layer cuts it silently)."""
-        spec = sp.merge(spec, self.key_bits, drop_singletons)
-        sp.check_overflow(spec)
-        return spec
+    def _merged(self, specs, drop_singletons=False):
+        """Every shard's fold.  A store that overflows raises, as the
+        single-device counter does (the JAX layer cuts it silently); the
+        fullest store of the mesh decides, so every process raises."""
+        specs = [sp.merge(s, self.key_bits, drop_singletons) for s in specs]
+        sp.check_overflow_value(self.mesh.pmax(s.n_main for s in specs),
+                                self.local_capacity)
+        return specs
 
     # -- collective steps ---------------------------------------------------
     def step(self, specs, codes, lengths):
@@ -165,12 +184,11 @@ class ShardedCounter:
                 f"one superstep routes {every.numel()} keys but the local "
                 f"buffer holds {BC}; raise local_buf_capacity")
         owner = self._owner(every)
-        out = []
-        for me, spec in enumerate(specs):
-            if spec.n_buf + every.numel() > BC:
-                spec = self._merge(spec)
-            out.append(sp.insert(spec, torch.where(owner == me, every, -1)))
-        return out
+        # every shard's buffer holds the same count: they merge together
+        if specs[0].n_buf + every.numel() > BC:
+            specs = self._merged(specs)
+        return [sp.insert(spec, torch.where(owner == me, every, -1))
+                for me, spec in zip(self.mesh.shard_ids, specs)]
 
     def routed_per_step(self, rows_local: int, L: int,
                         quota_slack: float = 2.0) -> int:
@@ -202,15 +220,14 @@ class ShardedCounter:
         S, Bl, L = codes[0].shape
         Q = self.routed_per_step(Bl, L, quota_slack) // n
         dropped = [torch.zeros((), dtype=torch.int64, device=self.device)
-                   for _ in range(n)]
+                   for _ in codes]
         for s in range(S):
             if n > 1:
                 sends = []
-                for me in range(n):
-                    rows, d = self._route_rows(codes[me][s], lengths[me][s],
-                                               Q)
+                for i, (c, ln) in enumerate(zip(codes, lengths)):
+                    rows, d = self._route_rows(c[s], ln[s], Q)
                     sends.append(rows)
-                    dropped[me] += d
+                    dropped[i] += d
                 got = self.mesh.all_to_all(sends)
                 del sends
             else:
@@ -223,7 +240,7 @@ class ShardedCounter:
         """Per-shard buffer merge, then a deNoise sweep on every shard when
         rounds remain and the summed distinct count reaches the threshold
         -> (specs, rounds left)."""
-        specs = [self._merge(s) for s in specs]
+        specs = self._merged(specs)
         if rounds > 0 and self.mesh.psum(
                 s.ndistinct for s in specs) >= threshold:
             specs = [sp.sweep(s, self.key_bits) for s in specs]
@@ -231,7 +248,7 @@ class ShardedCounter:
         return specs, rounds
 
     def merge(self, specs, drop_singletons: bool = False):
-        return [self._merge(s, drop_singletons) for s in specs]
+        return self._merged(specs, drop_singletons)
 
     def stats(self, specs) -> tuple[int, int]:
         """Global (ndistinct, nelts): sums over the shards."""
@@ -241,10 +258,11 @@ class ShardedCounter:
     # -- host interop -------------------------------------------------------
     def from_host(self, keys: np.ndarray, counts: np.ndarray,
                   traveled: np.ndarray | None = None) -> list[sp.Spectrum]:
-        """Key-range-sharded spectra from global sorted host arrays (the
-        .ser load path of the mesh CLIs), by the counting ownership rule.
-        Every shard's ``nelts`` is the global total // n, as in the JAX
-        layer (``stats`` sums them)."""
+        """Key-range-sharded spectra of the shards this process holds,
+        from global sorted host arrays (the .ser load path of the mesh
+        CLIs), by the counting ownership rule.  Every shard's ``nelts`` is
+        the global total // n, as in the JAX layer (``stats`` sums
+        them)."""
         n, Cl, kb = self.n_shards, self.local_capacity, self.key_bits
         keys = np.asarray(keys, np.uint64)
         counts = np.asarray(counts, np.int64)
@@ -255,7 +273,7 @@ class ShardedCounter:
         bounds = np.searchsorted(keys, edges)
         nelts = int(counts.sum()) // n
         out = []
-        for s in range(n):
+        for s in self.mesh.shard_ids:
             a, b = int(bounds[s]), int(bounds[s + 1])
             if b - a > Cl:
                 raise ValueError(
@@ -269,7 +287,15 @@ class ShardedCounter:
 
     def gather_spectrum(self, specs):
         """The shards' live entries concatenated -> global sorted (keys,
-        counts) numpy arrays."""
+        counts) numpy arrays.  Single-process only, as in the JAX layer,
+        whose host gather cannot read shards other processes hold (ROADMAP
+        §3, fault 10)."""
+        if spans_processes(self.mesh):
+            raise ValueError(
+                "gather_spectrum reads every shard's store, but other "
+                "processes hold some of them (reference fault 10: the JAX "
+                "layer cannot gather across processes either); dump each "
+                "process's shards instead")
         parts = [sp.to_host(s, self.key_bits) for s in specs]
         return (np.concatenate([p[0] for p in parts]),
                 np.concatenate([p[1] for p in parts]))

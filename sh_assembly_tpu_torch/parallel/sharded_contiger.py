@@ -22,6 +22,13 @@ Contraction and the host assembly are the single-device tail
 (``contiger.finalize_unitigs``) on the shards' stores concatenated: a
 node's index is shard * node_cap_local + local, so the unitig numbering
 follows the JAX sharded run and not the single-device one.
+
+The collective steps run over any mesh, with the shards spread over
+processes (``collectives.Distributed``): every width that crosses shards
+(rows, index bits) and every decision that raises (drops, the store's
+fill) is agreed through ``pmax`` or ``psum``.  The host tail needs every
+shard's store and stays single-process, as the JAX layer's is
+(``shard_parts`` runs the steps, ``finish_parts`` the tail).
 """
 
 from __future__ import annotations
@@ -40,7 +47,7 @@ from ..ops import bits, kmerpack as kp, merge128_cuda, nthash, packio, \
 from ..utils import profiling
 from ..utils.logging import log
 from .sharded import ShardedCounter, quota_rows, row_width, \
-    split_rows
+    spans_processes, split_rows
 
 SENT = bits.SENTINEL
 _MASK32 = 0xFFFFFFFF
@@ -86,11 +93,12 @@ class ShardedContiger:
     def _route(self, cols, bounds, Q: int, fills):
         """Exchange every shard's sorted columns by owner: row o of shard s
         holds cols[s][c][bounds[s][o]:bounds[s][o + 1]], at most Q of them,
-        padded with fills[c] to the widest count (``row_width``).  The
-        columns go one at a time and are released as they are cut.  Returns
-        (the received columns per shard, each [n * width], the entries
-        beyond a quota, width)."""
-        width = row_width(bounds, Q)
+        padded with fills[c] to the widest count in the mesh
+        (``row_width``).  The columns go one at a time and are released as
+        they are cut.  Returns (the received columns per shard, each [n *
+        width], the entries beyond a quota on this process's shards,
+        width)."""
+        width = row_width(self.mesh, bounds, Q)
         recv, drop = [], 0
         for c, fill in enumerate(fills):
             rows = []
@@ -114,7 +122,9 @@ class ShardedContiger:
             return [sp.query_join_auto(specs[0], keys.pop(), kb)], 0
         dev = keys[0].device
         sizes = [q.numel() for q in keys]
-        idx_bits = max(int(np.ceil(np.log2(max(max(sizes), 2)))), 1)
+        # the owner decodes every sender's rows with one width
+        idx_bits = max(int(np.ceil(np.log2(max(self.mesh.pmax(sizes), 2)))),
+                       1)
         if kb + idx_bits > 63:
             raise ValueError("dist-count packing overflow")
         sb = self.counter.shard_bits
@@ -132,9 +142,9 @@ class ShardedContiger:
         keys.clear()
         recv, drop, width = self._route(cols, bounds, Qd, [SENT])
         resp = []
-        for me, spec in enumerate(specs):
-            (r,) = recv[me]
-            recv[me] = None
+        for i, spec in enumerate(specs):
+            (r,) = recv[i]
+            recv[i] = None
             sent = r == SENT
             c = sp.query_join_auto(
                 spec, torch.where(sent, SENT, bits.srl(r, idx_bits)), kb)
@@ -175,9 +185,9 @@ class ShardedContiger:
         queries.clear()
         recv, drop, width = self._route(cols, bounds, Qd, [SENT] * 3)
         resp = []
-        for me, st in enumerate(stores):
-            gh, gl, go = recv[me]
-            recv[me] = None
+        for i, (me, st) in enumerate(zip(self.mesh.shard_ids, stores)):
+            gh, gl, go = recv[i]
+            recv[i] = None
             j = kp.join2(st.hi, st.lo, gh, gl).long()
             gidx = torch.where(j >= 0, me * Cl + j, -1)
             resp.append(torch.where(go == SENT, SENT, (go << 32) | (gidx + 1))
@@ -216,9 +226,9 @@ class ShardedContiger:
             cands.clear()
             cands, drop, _ = self._route(cols, bounds, Qc, [SENT, SENT, 1])
         n_live, fresh = [], []
-        for me, st in enumerate(stores):
-            chi, clo, nflag = cands[me]
-            cands[me] = None
+        for i, st in enumerate(stores):
+            chi, clo, nflag = cands[i]
+            cands[i] = None
             perm = kp.sort_pairs(chi, clo, nflag)
             chi, clo, nflag = chi[perm], clo[perm], nflag[perm]
             o_hi, o_lo, o_nf, nl = merge128_cuda.merge128(
@@ -369,9 +379,10 @@ class ShardedContiger:
         return out, dj + dc
 
 
-def node_cap_for(specs) -> int:
+def node_cap_for(mesh, specs) -> int:
     """Per-shard node-store capacity: the busiest shard's expected share of
-    the summed distinct keys with 1/8 slack, as a power of two.
+    the distinct keys summed over the mesh, with 1/8 slack, as a power of
+    two.
 
     A shard owns a range of the canonical k-mers' top bits, and a canonical
     k-mer is the smaller of two near-uniform words, so shard 0 expects
@@ -380,33 +391,48 @@ def node_cap_for(specs) -> int:
     genome of a few Mbp at any n > 1; at n = 1 both rules agree.  Nothing
     the Contiger outputs depends on the capacity.
     """
-    n = len(specs)
-    nd = max(sum(s.ndistinct for s in specs), 1024)
+    n = mesh.n
+    nd = max(mesh.psum(s.ndistinct for s in specs), 1024)
     busiest = nd - nd * (n - 1) ** 2 // n ** 2
     per = busiest + busiest // 8 + 1024
     return 1 << int(np.ceil(np.log2(per)))
 
 
-def assemble_unitigs_sharded(
+@dataclass
+class ShardPart:
+    """One shard's share of the Contiger's collective steps: its node store
+    (k-mer words and seed flags, ``node_cap_local`` slots) and its graph
+    probes (``ShardedContiger.probe``)."""
+
+    hi: torch.Tensor  # int64[Cl]
+    lo: torch.Tensor  # int64[Cl]
+    seed: torch.Tensor  # uint8[Cl]
+    ecount: torch.Tensor  # int32[2Cl]
+    succ: torch.Tensor  # int64[2Cl], global node indices
+    orient: torch.Tensor  # int32[2Cl]
+    counts: torch.Tensor  # int32[Cl]
+    valid: torch.Tensor  # bool[Cl]
+
+
+def shard_parts(
     sc: ShardedCounter,
     specs: list[sp.Spectrum],
     batches: Iterable[fastq.Batch],
     params: cfg.ContigerParams,
     node_cap_local: int | None = None,
     quota_slack: float = 2.0,
-) -> contiger.ArrayUnitigs:
-    """Full Contiger over a sharded spectrum -> ArrayUnitigs.
-
-    Node collection, the phantom closure and the graph probes run over
-    the mesh; contraction and the host assembly are the single-device
-    tail (``contiger.finalize_unitigs``).
-    """
+) -> tuple[list[ShardPart], bool] | None:
+    """The Contiger's collective steps over the mesh: node collection, the
+    phantom closure and the graph probes -> (the parts of the shards this
+    process holds, whether the batches carried seed columns), or None when
+    the stream was empty.  Every process of the mesh feeds the same number
+    of batches (``multihost.coordinated_stream``)."""
     k = params.k
-    n = sc.n_shards
+    mesh = sc.mesh
     dev = sc.device
     contiger.check_solid_cap(sc.key_bits, params.solid_kmer_abundance_max)
     if node_cap_local is None:
-        node_cap_local = node_cap_for(specs)
+        node_cap_local = node_cap_for(mesh, specs)
     st = ShardedContiger(counter=sc, k=k,
                          abundance_min=params.kmer_abundance_min,
                          node_cap_local=node_cap_local,
@@ -418,7 +444,7 @@ def assemble_unitigs_sharded(
         hi=torch.full((Cl,), SENT, dtype=torch.int64, device=dev),
         lo=torch.full((Cl,), SENT, dtype=torch.int64, device=dev),
         seed=torch.zeros(Cl, dtype=torch.uint8, device=dev))
-        for _ in range(n)]
+        for _ in mesh.shard_ids]
     n_peak = 0
     B = Lp = None
     dropped = 0
@@ -439,9 +465,6 @@ def assemble_unitigs_sharded(
             rows = packed.shape[0]
             if Lp is None:
                 Lp, B = Lp_b, rows
-                if B % n:
-                    raise ValueError(
-                        f"batch rows {B} not divisible by mesh {n}")
             if Lp_b != Lp or rows != B:
                 raise ValueError("mixed batch geometry")
             if b.seed_col is not None:
@@ -450,17 +473,20 @@ def assemble_unitigs_sharded(
             else:
                 seedc = np.full(rows, -1, np.int32)
             n_live, d = st.collect(
-                specs, stores, *(split_rows(sc.mesh, a) for a in (
+                specs, stores, *(split_rows(mesh, a) for a in (
                     packed, nmask, np.asarray(b.lengths, np.int32), seedc)),
                 Lp)
             n_peak = max(n_peak, max(n_live))
             dropped += int(d)
     if Lp is None:
-        return contiger.ArrayUnitigs.empty(k)
+        return None
+    # agreed, so that every process raises together
+    dropped = mesh.psum([dropped])
     if dropped:
         raise RuntimeError(
             f"sharded collect dropped {dropped} routed k-mers: raise "
             f"quota_slack")
+    n_peak = mesh.pmax([n_peak])
     if n_peak >= Cl:
         raise RuntimeError(
             f"node store overflow: shard peak {n_peak} reached cap {Cl}; "
@@ -473,11 +499,11 @@ def assemble_unitigs_sharded(
         for rnd in range(max_rounds):
             n_live, n_new, d, frontiers = st.phantom(specs, stores,
                                                      frontiers)
-            if int(d):
+            if mesh.psum([d]):
                 raise RuntimeError(
                     "sharded phantom closure dropped routed k-mers: raise "
                     "quota_slack")
-            n_peak = max(n_peak, max(n_live))
+            n_peak = mesh.pmax([n_peak, *n_live])
             if n_peak >= Cl:
                 raise RuntimeError(
                     f"node store overflow during phantom closure: shard "
@@ -495,15 +521,26 @@ def assemble_unitigs_sharded(
 
     # ---- phase B ----------------------------------------------------------
     with profiling.phase("contiger:mesh probe graph"):
-        parts, d = st.probe(specs, stores)
-        if int(d):
+        probes, d = st.probe(specs, stores)
+        if mesh.psum([d]):
             raise RuntimeError("sharded probe dropped routed queries: raise "
                                "quota_slack")
-        ec, sjg, sog = (torch.cat(x).cpu().numpy().astype(np.int64)
-                        for x in list(zip(*parts))[:3])
-        node_counts = torch.cat([p[3] for p in parts])
-        valid = torch.cat([p[4] for p in parts])
-    del parts
+    parts = [ShardPart(s.hi, s.lo, s.seed, *p)
+             for s, p in zip(stores, probes)]
+    return parts, mesh.pmax([saw_seed_meta]) > 0
+
+
+def finish_parts(parts: list[ShardPart], saw_seed_meta: bool,
+                 params: cfg.ContigerParams) -> contiger.ArrayUnitigs:
+    """The single-device tail on every shard's part, in global shard order:
+    the chain rule on global indices, then contraction and the host
+    assembly (``contiger.finalize_unitigs``)."""
+    n, Cl = len(parts), parts[0].hi.shape[0]
+    ec, sjg, sog = (torch.cat(x).cpu().numpy().astype(np.int64) for x in (
+        [p.ecount for p in parts], [p.succ for p in parts],
+        [p.orient for p in parts]))
+    node_counts = torch.cat([p.counts for p in parts])
+    real = torch.cat([p.valid for p in parts]).cpu().numpy()
 
     # ---- combine chain rule on host (global numbering) --------------------
     Npt = n * Cl
@@ -517,11 +554,41 @@ def assemble_unitigs_sharded(
     ok &= (target != a_idx) & (target != (a_idx ^ 1))
     chain_next = np.where(ok, target, -1).astype(np.int32)
 
-    real = valid.cpu().numpy()
+    # a store only grows, so its last fill is its peak
+    peak = max(int(p.valid.sum()) for p in parts)
     log(f"[Contiger/sharded] {int(real.sum())} distinct solid k-mers over "
-        f"{n} shards (peak shard fill {n_peak}/{Cl})")
-    is_seed = (torch.cat([s.seed for s in stores]).cpu().numpy() != 0
+        f"{n} shards (peak shard fill {peak}/{Cl})")
+    is_seed = (torch.cat([p.seed for p in parts]).cpu().numpy() != 0
                if saw_seed_meta else None)
     return contiger.finalize_unitigs(
-        torch.cat([s.hi for s in stores]), torch.cat([s.lo for s in stores]),
+        torch.cat([p.hi for p in parts]), torch.cat([p.lo for p in parts]),
         real, node_counts, chain_next, params, is_seed=is_seed)
+
+
+def assemble_unitigs_sharded(
+    sc: ShardedCounter,
+    specs: list[sp.Spectrum],
+    batches: Iterable[fastq.Batch],
+    params: cfg.ContigerParams,
+    node_cap_local: int | None = None,
+    quota_slack: float = 2.0,
+) -> contiger.ArrayUnitigs:
+    """Full Contiger over a sharded spectrum -> ArrayUnitigs.
+
+    Node collection, the phantom closure and the graph probes run over
+    the mesh; contraction and the host assembly are the single-device
+    tail (``contiger.finalize_unitigs``).  Single-process only: the tail
+    reads every shard's store (ROADMAP §3, fault 10).
+    """
+    if spans_processes(sc.mesh):
+        raise ValueError(
+            "assemble_unitigs_sharded ends in a host tail that reads every "
+            "shard's store, but other processes hold some of them "
+            "(reference fault 10: the JAX layer's tail cannot gather across "
+            "processes either); run shard_parts in every process and "
+            "finish_parts on all the parts in one")
+    got = shard_parts(sc, specs, batches, params, node_cap_local,
+                      quota_slack)
+    if got is None:
+        return contiger.ArrayUnitigs.empty(params.k)
+    return finish_parts(*got, params)

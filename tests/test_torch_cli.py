@@ -108,6 +108,15 @@ def test_port_runs_without_jax(workload, tmp_path):  # noqa: F811
                                "--log2-w", "8"]) == 0
         assert sort.main(["--device", "cpu", "--log2-n", "12"]) == 0
         assert kernels.main(["--device", "cpu", "--log2-capacity", "12"]) == 0
+        from sh_assembly_tpu_torch.profile import collect, entry, hot, stage2
+        assert hot.main(["--device", "cpu", "--log2-capacity", "12",
+                         "--log2-buf", "14", "--rows", "16", "--stacks", "2",
+                         "--reps", "1"]) == 0
+        assert collect.main(["--device", "cpu", "--genome-len", "3000",
+                             "--reads", "300", "--batch", "128"]) == 0
+        assert stage2.main(["--device", "cpu", "--log2-n", "10",
+                            "--log2-capacity", "13", "--log2-buf", "11"]) == 0
+        assert entry.main(["--device", "cpu"]) == 0
         a = spectrum.from_host([1, 2, 3], [4, 5, 6], 8, 8, 30, device="cpu")
         assert int(spectrum.inner_product(a, spectrum.union(a, a, 30), 30)) \
             == 2 * (16 + 25 + 36)

@@ -170,7 +170,7 @@ def test_node_cap_holds_the_busiest_shard(tmp_path):
 
     nd = max(sum(s.ndistinct for s in specs), 1024)
     jax_cap = 1 << int(np.ceil(np.log2(nd // n + nd // (8 * n) + 1024)))
-    assert sharded_contiger.node_cap_for(specs) > jax_cap
+    assert sharded_contiger.node_cap_for(sc.mesh, specs) > jax_cap
     with pytest.raises(RuntimeError, match="node store overflow"):
         sharded_contiger.assemble_unitigs_sharded(
             sc, specs, stream(), params, node_cap_local=jax_cap)
