@@ -111,6 +111,13 @@ exits non-zero without printing a result:
      profile.collect (node collection under cProfile, with its device
      share) and profile.stage2 (graph probes and contraction of 2^24
      nodes against a 2^28-slot spectrum), each printing what it measured.
+ 13. the bench (``python -m sh_assembly_tpu_torch.bench``) at its default
+     shapes with SH_BENCH_FULL=1, in this process after phase 12 (the
+     kernels are built): it must exit 0 with the primary JSON line last
+     (at least 2 merges in its timed window) and a warm end-to-end line
+     before it, K1 bitwise equal to its plain twin, no section skipped
+     for the deadline; prints its JSON and ``#`` lines and the K1-K3
+     launches of the whole run.
 
 ``python3 chip_smoke.py --nccl-processes N`` runs phases 0, 1 and 11a
 alone at N processes x 1 shard over NCCL, a card each (N cards).
@@ -2066,6 +2073,56 @@ def phase12_profiles():
               flush=True)
 
 
+def phase13_bench():
+    """The bench at its defaults with SH_BENCH_FULL=1 -> its K1-K3
+    launches."""
+    from sh_assembly_tpu_torch import bench
+
+    print("== phase 13: the bench (sh_assembly_tpu_torch.bench, "
+          "SH_BENCH_FULL=1)", flush=True)
+    out = io.StringIO()
+    env = {k: os.environ.get(k) for k in ("SH_BENCH_FULL",
+                                          "SH_BENCH_DEADLINE")}
+    os.environ["SH_BENCH_FULL"] = "1"
+    os.environ.pop("SH_BENCH_DEADLINE", None)
+    _reset_launches()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc, logtxt, wall = _run_main(bench.main, [])
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    launches = _launches()
+    lines = out.getvalue().strip().splitlines()
+    for line in lines:
+        print(f"  {line}")
+    for line in logtxt.splitlines():
+        if line.startswith("# "):
+            print(f"  {line}")
+    print(f"  bench wall {wall:.1f} s; kernel launches {launches}",
+          flush=True)
+    if rc != 0:
+        raise AssertionError(f"the bench exited {rc}")
+    primary = json.loads(lines[-1]) if lines else {}
+    if primary.get("metric") != bench.PRIMARY:
+        raise AssertionError("the bench's last line is not its primary JSON")
+    if primary["merges"] < 2:
+        raise AssertionError(f"{primary['merges']} merges in the timed "
+                             f"window")
+    e2e = json.loads(lines[-2]) if len(lines) > 1 else {}
+    if e2e.get("metric") != bench.E2E or e2e.get("warm") is not True:
+        raise AssertionError(f"no warm end-to-end line: {e2e}")
+    if bench.LAST.get("identity") != "OK":
+        raise AssertionError(f"K1 identity: {bench.LAST.get('identity')}")
+    if bench.LAST["skipped"] or "skipped: bench deadline" in logtxt:
+        raise AssertionError(f"skipped for the deadline: "
+                             f"{bench.LAST['skipped']}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2089,6 +2146,7 @@ def main() -> int:
         mesh = phase10_mesh()
         mp = phase11_mesh()
         phase12_profiles()
+        phase13_bench()
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     loaded = [m for m in sys.modules

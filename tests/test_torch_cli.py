@@ -78,8 +78,8 @@ def test_ser_byte_identical_to_reference_hot_loop(ref_count, workload,  # noqa: 
 def test_port_runs_without_jax(workload, tmp_path):  # noqa: F811
     """With `import jax` made to fail, the port's CLI imports and counts
     (single store and --mesh 2, the same bytes), its tools, profiling
-    entry points, the mesh layer's dry run and set operations run, and
-    neither jax nor the JAX package gets loaded."""
+    entry points, the bench, the mesh layer's dry run and set operations
+    run, and neither jax nor the JAX package gets loaded."""
     out = tmp_path / "nojax.ser"
     mesh_out = tmp_path / "nojax_mesh.ser"
     code = textwrap.dedent(f"""
@@ -117,6 +117,13 @@ def test_port_runs_without_jax(workload, tmp_path):  # noqa: F811
         assert stage2.main(["--device", "cpu", "--log2-n", "10",
                             "--log2-capacity", "13", "--log2-buf", "11"]) == 0
         assert entry.main(["--device", "cpu"]) == 0
+        # the bench: its primary section alone (a deadline of 0 skips the rest)
+        import os
+        os.environ["SH_BENCH_DEADLINE"] = "0"
+        from sh_assembly_tpu_torch import bench
+        assert bench.main(["--device", "cpu", "--log2-capacity", "16",
+                           "--log2-buf", "13", "--rows", "8",
+                           "--stacks", "2"]) == 0
         a = spectrum.from_host([1, 2, 3], [4, 5, 6], 8, 8, 30, device="cpu")
         assert int(spectrum.inner_product(a, spectrum.union(a, a, 30), 30)) \
             == 2 * (16 + 25 + 36)
