@@ -8,9 +8,9 @@ exits non-zero without printing a result:
 
   0. device: nvidia-smi name and power limit, torch/CUDA versions; no GPU
      is an error.
-  1. build: compiles kernels K1-K4 (csrc/merge_dedup.cu, count_join.cu,
-     merge128.cu, block_sort.cu) from the checkout, one nvcc each, in
-     parallel.
+  1. build: compiles kernels K1-K5 (csrc/merge_dedup.cu, count_join.cu,
+     merge128.cu, block_sort.cu, hash_append.cu) from the checkout, one
+     nvcc each, in parallel.
   2. K1 against its plain PyTorch twin on the card, bitwise: the merge
      cases of the JAX package's kernel tests, the maximum key, counts at
      the cap, empty inputs, runs spanning many tiles, an overflowing
@@ -26,8 +26,9 @@ exits non-zero without printing a result:
      .ser files must be byte-identical.
   4. main path at real state size: the CLI with the C. elegans flags of
      the reference README (2^29-slot store, 2^27-slot buffer) on 3 M
-     synthetic reads; counts K1 launches, checks the .ser header, reports
-     k-mers/s and peak device memory.
+     synthetic reads; counts K1 and K5 launches (K5 appends a stack of 8
+     batches a launch: fewer launches and append calls than batches),
+     checks the .ser header, reports k-mers/s and peak device memory.
   5. K2 (count join) and K3 (node-store fold) against their plain PyTorch
      versions on the card, bitwise: the cases of the JAX package's kernel
      tests, empty and all-matching inputs, the maximum key, traveled
@@ -55,8 +56,9 @@ exits non-zero without printing a result:
   7. main path at real size: the pipeline CLI on a 12 Mbp genome (30x of
      150 bp reads); prints the phase breakdown, peak device memory, node,
      unitig and contig counts and N50; the contigs must total within 10%
-     of the genome, every kernel must launch, and the native contraction
-     library must load.
+     of the genome, every kernel of the path (K1, K2, K3, K5) must launch,
+     K5 by the stack (fewer launches and append calls than batches), and
+     the native contraction library must load.
 
   8. K4 (window sort) against its plain PyTorch version on the card,
      bitwise: windows of 2^7 to 2^19 values (several windows in a block,
@@ -89,7 +91,8 @@ exits non-zero without printing a result:
      (c) phase 7's 12 Mbp genome through cqf_denoise --mesh 4 and contiger
      --mesh 4: the unitigs the same set as phase 7's (cli.compare_contigs)
      and cli.minia's contigs within 10% of the genome, with phase
-     breakdowns, peaks and K1-K3 launches; (d) profile.mesh (routed
+     breakdowns, peaks and K1-K3 launches (the mesh's counter hashes
+     without K5); (d) profile.mesh (routed
      against one shard alone, n = 8) and dryrun_multichip(8).
  11. the multi-process mesh (``collectives.Distributed`` over
      torch.distributed; workers spawned from this file): (a) phase 7's
@@ -106,8 +109,9 @@ exits non-zero without printing a result:
      process's wall, phases, peak memory and kernel launches are printed.
 
  12. the profiling entry points of the counting hot path and the Contiger
-     at their defaults: profile.entry (one fused counting step),
-     profile.hot (hash, append, the buffer sorts and K1 at 2^28 slots),
+     at their defaults: profile.entry (one fused counting step,
+     counter.count_batch), profile.hot (hash, the stack's append through
+     K5, the buffer sorts and K1 at 2^28 slots),
      profile.collect (node collection under cProfile, with its device
      share) and profile.stage2 (graph probes and contraction of 2^24
      nodes against a 2^28-slot spectrum), each printing what it measured.
@@ -116,22 +120,35 @@ exits non-zero without printing a result:
      kernels are built): it must exit 0 with the primary JSON line last
      (at least 2 merges in its timed window) and a warm end-to-end line
      before it, K1 bitwise equal to its plain twin, no section skipped
-     for the deadline; prints its JSON and ``#`` lines and the K1-K3
-     launches of the whole run.
+     for the deadline; prints its JSON and ``#`` lines and the K1-K3 and
+     K5 launches of the whole run.
+ 14. K5 (hash + append) against its plain PyTorch version on the card,
+     bitwise, words around the written range included: the cases of the
+     CPU test (tests/test_torch_append_scan.py: k = 21, 47, 63, Ns, rows
+     shorter than k, zero-length rows, an odd starting fill) in both
+     input forms (base codes and the 2-bit transport), batches of 100
+     rows, rows of 37, 152 and 5000 bases, batches of nothing but empty
+     or short rows; then its two real shapes, profile.hot's (8 x 8192
+     reads of 160 bp, k = 47, key_bits 36) and phase 7's (150 bp reads in
+     rows of 152, key_bits 34), timed against the plain version with
+     their bounds.
 
 ``python3 chip_smoke.py --nccl-processes N`` runs phases 0, 1 and 11a
 alone at N processes x 1 shard over NCCL, a card each (N cards).
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels: launches on the path that runs each (phase 7 for K1-K3,
-phase 8's profiling entry point for K4, which the main path never
-launches), launches on the mesh path (phase 10c), launches summed over
+the kernels, and the one before that repeats phase 0's card name and power
+limit.  The kernels line gives launches on the path that runs each (phase
+7 for K1-K3 and K5, phase 8's profiling entry point for K4, which the main
+path never launches), launches on the mesh path (phase 10c), launches summed over
 the processes of the multi-process path (mp_launches: 11a for K1, 11b for
-K2 and K3), times, and each
+K2 and K3), launches in the bench (bench_launches, phase 13), times
+(K5's at profile.hot's shape, genome_* at phase 7's), and each
 kernel's bound, the least time the card could
 take, computed from this run's shapes and results: the larger of the
 bytes moved (each input read once, the live result written once) over
-HBM_BYTES_PER_S and the key comparisons over OPS_PER_S; K2's entry also
+HBM_BYTES_PER_S and the key comparisons (K5: the 32-bit operations of a
+rolling hash) over OPS_PER_S; K2's entry also
 has its time at the sparse shape (sparse_ms) beside torch.searchsorted's
 there (sparse_library_ms), K3's its times at the small shape (small_ms)
 and against an empty store (empty_ms, empty_bound_ms).  Work files go to
@@ -618,6 +635,114 @@ def k4_cases(device):
                    torch.from_numpy(v.view(np.int32)).to(device), W)
 
 
+# K5's geometries of the CPU test (tests/test_torch_append_scan.py):
+# (k, key_bits) with key_bits below, at and above one 32-bit plane
+K5_GEOMETRIES = [(21, 22), (47, 32), (63, 56)]
+
+
+def k5_stack(seed: int, k: int, S: int = 3, B: int = 5, L: int = 72):
+    """u8 base codes [S, B, L] and int32 lengths [S, B] from a numpy seed:
+    Ns (code 4) and pad bases (code 5) inside reads, full rows, a
+    zero-length row, a row one base shorter than k, a row of exactly k,
+    and pad behind every length."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, size=(S, B, L)).astype(np.uint8)
+    odd = rng.random((S, B, L))
+    codes[odd < 0.03] = 4
+    codes[odd > 0.99] = 5
+    lengths = rng.integers(k, L + 1, size=(S, B)).astype(np.int32)
+    lengths.flat[0] = 0
+    lengths.flat[min(B + 1, lengths.size - 1)] = k - 1
+    lengths.flat[-1] = L
+    lengths.flat[min(B + 3, lengths.size - 2)] = k
+    codes[np.arange(L)[None, None, :] >= lengths[..., None]] = 5
+    return codes, lengths
+
+
+def k5_cases(device):
+    """(name, bases, lengths, k, key_bits, n_buf) tuples for K5: ``bases``
+    is dict(codes=...) or dict(packed=..., nmask=...) of tensors on
+    device.  The CPU test's stacks and batches in both forms at an odd
+    starting fill, then 8 batches of 100 rows, rows of 152 bases (phase
+    7's), rows of 5000 (one row a block), a batch of nothing but
+    zero-length rows and one of rows too short for any window."""
+    import torch
+
+    from sh_assembly_tpu_torch.ops import packio
+
+    def forms(codes, lengths):
+        packed, nmask = packio.pack_np(codes) if codes.shape[-1] % 8 == 0 \
+            else (None, None)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        yield "codes", dict(codes=t(codes)), t(lengths)
+        if packed is not None:
+            yield "packed", dict(packed=t(packed), nmask=t(nmask)), t(lengths)
+
+    for k, kb in K5_GEOMETRIES:
+        codes, lengths = k5_stack(200 + k, k)
+        for form, bases, ln in forms(codes, lengths):
+            yield f"k{k}_stack_{form}", bases, ln, k, kb, 3
+            one = {n: v[1] for n, v in bases.items()}
+            yield f"k{k}_batch_{form}", one, ln[1], k, kb, 1001
+    for name, seed, k, (S, B, L) in (("rows100", 5, 31, (8, 100, 96)),
+                                      ("rows152", 6, 47, (2, 64, 152)),
+                                      ("rows5000", 7, 63, (1, 3, 5000)),
+                                      ("odd_len", 8, 25, (2, 7, 37))):
+        codes, lengths = k5_stack(seed, k, S, B, L)
+        for form, bases, ln in forms(codes, lengths):
+            yield f"{name}_{form}", bases, ln, k, 36, 7
+    codes, lengths = k5_stack(9, 47, 1, 16, 64)
+    for fill, name in ((0, "all_empty"), (46, "all_short")):
+        for form, bases, ln in forms(codes, np.full_like(lengths, fill)):
+            yield f"{name}_{form}", bases, ln, 47, 36, 0
+
+
+def k5_compare(name, bases, ln, k, key_bits, n_buf) -> None:
+    """One k5_cases case through K5 and its plain version into two
+    buffers poisoned around the written range: both buffers and both
+    counts must agree, and the input count must stay as it was."""
+    import torch
+
+    from sh_assembly_tpu_torch.ops import hash_append_cuda as ha
+
+    L = bases["codes"].shape[-1] if "codes" in bases else \
+        4 * bases["packed"].shape[-1]
+    size = n_buf + ln.numel() * (L - k + 1) + 5
+    bufs = [torch.full((size,), 0x5A5A5A5A5A5A5A5A, dtype=torch.int64,
+                       device=ln.device) for _ in range(2)]
+    nelts = torch.full((), 11, dtype=torch.int64, device=ln.device)
+    got = ha.hash_append_cuda(bufs[0], n_buf, nelts, ln, k, key_bits, **bases)
+    want = ha.hash_append_plain(bufs[1], n_buf, nelts, ln, k, key_bits,
+                                **bases)
+    torch.cuda.synchronize()
+    if int(got) != int(want) or int(nelts) != 11 or not torch.equal(*bufs):
+        raise AssertionError(
+            f"K5 != plain version on {name}: nelts {int(got)} vs "
+            f"{int(want)}, {int((bufs[0] != bufs[1]).sum())} words differ")
+
+
+def k5_real(device, read_len: int, S: int = 8, B: int = 8192,
+            genome_len: int = 8_000_000, seed: int = 1):
+    """S batches of B reads of read_len bp from a random genome with N
+    bases at 1 in 2000, in the 2-bit transport with rows padded to a
+    multiple of 8: (packed, nmask, lengths, Lp) tensors on device."""
+    import torch
+
+    from sh_assembly_tpu_torch.ops import packio
+
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, size=genome_len).astype(np.uint8)
+    genome[rng.random(genome_len) < 0.0005] = 4
+    Lp = (read_len + 7) // 8 * 8
+    starts = rng.integers(0, genome_len - read_len, size=(S, B))
+    codes = np.full((S, B, Lp), 5, np.uint8)
+    codes[..., :read_len] = genome[starts[..., None] + np.arange(read_len)]
+    packed, nmask = packio.pack_np(codes)
+    lengths = np.full((S, B), read_len, np.int32)
+    return (*(torch.from_numpy(a).to(device) for a in
+              (packed, nmask, lengths)), Lp)
+
+
 def _merged_spectrum(store, n, key_bits):
     """A merged Spectrum around a packed store with n live entries."""
     import torch
@@ -699,18 +824,20 @@ def phase0_device():
 def phase1_build():
     from concurrent.futures import ThreadPoolExecutor
 
-    from sh_assembly_tpu_torch.ops import _build, blocksort_cuda, join_cuda, \
-        merge128_cuda, merge_cuda
+    from sh_assembly_tpu_torch.ops import _build, blocksort_cuda, \
+        hash_append_cuda, join_cuda, merge128_cuda, merge_cuda
 
     print("== phase 1: build", flush=True)
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)  # build from source
     t0 = time.time()
     # one nvcc per source, all started together
-    with ThreadPoolExecutor(4) as ex:
-        for f in [ex.submit(m.build) for m in (merge_cuda, join_cuda,
-                                               merge128_cuda, blocksort_cuda)]:
+    mods = (merge_cuda, join_cuda, merge128_cuda, blocksort_cuda,
+            hash_append_cuda)
+    with ThreadPoolExecutor(len(mods)) as ex:
+        for f in [ex.submit(m.build) for m in mods]:
             f.result()
-    for name in ("merge_dedup", "count_join", "merge128", "block_sort"):
+    for name in ("merge_dedup", "count_join", "merge128", "block_sort",
+                 "hash_append"):
         print(f"built {name} (sm_90a) -> {_build.lib_path(name)}")
     print(f"  all kernels built in {time.time() - t0:.2f} s")
 
@@ -895,6 +1022,7 @@ def phase4_main():
     import torch
 
     from sh_assembly_tpu_torch import config as cfg
+    from sh_assembly_tpu_torch.ops import hash_append_cuda as ha
     from sh_assembly_tpu_torch.ops import merge_cuda as mc
     from sh_assembly_tpu_torch.utils import profiling
 
@@ -916,17 +1044,24 @@ def phase4_main():
     ser = os.path.join(d, "main.ser")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    mc.LAUNCHES = 0
+    mc.LAUNCHES = ha.LAUNCHES = 0
     stats, _, wall = _run_cli(MAIN_FLAGS + [
         "-i", os.path.join(d, "ReadFiles.txt"), "-o", ser, "--device", "cuda"])
-    launches = mc.LAUNCHES
+    launches, k5 = mc.LAUNCHES, ha.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     count_s = sum(s.seconds for n, s in profiling.GLOBAL.stats.items()
                   if n != "count:serialize")
+    appends = profiling.GLOBAL.stats["count:device append"].calls
     meta = _ser_meta(ser)
-    print(f"  {stats}; K1 launches {launches}")
+    print(f"  {stats}; K1 launches {launches}; K5 launches {k5}, "
+          f"count:device append {appends} calls for {stats['batches']} "
+          f"batches")
     if launches < stats["merges"] + stats["sweeps"] or stats["merges"] < 3:
         raise AssertionError(f"K1 launches {launches} < merges + sweeps")
+    if not 0 < k5 < stats["batches"] or appends >= stats["batches"]:
+        raise AssertionError(f"K5 did not append by the stack: {k5} "
+                             f"launches, {appends} append calls for "
+                             f"{stats['batches']} batches")
     if meta.nslots != 1 << sz.qb or meta.key_bits != sz.hb or \
             meta.nelts != stats["kmers"] or \
             meta.ndistinct_elts != stats["distinct"]:
@@ -1151,20 +1286,21 @@ def _n50(lens: np.ndarray) -> int:
 
 
 def _reset_launches():
-    from sh_assembly_tpu_torch.ops import join_cuda, merge128_cuda, \
-        merge_cuda
+    from sh_assembly_tpu_torch.ops import hash_append_cuda, join_cuda, \
+        merge128_cuda, merge_cuda
 
-    for m in (merge_cuda, join_cuda, merge128_cuda):
+    for m in (merge_cuda, join_cuda, merge128_cuda, hash_append_cuda):
         m.LAUNCHES = 0
 
 
 def _launches():
-    from sh_assembly_tpu_torch.ops import join_cuda, merge128_cuda, \
-        merge_cuda
+    from sh_assembly_tpu_torch.ops import hash_append_cuda, join_cuda, \
+        merge128_cuda, merge_cuda
 
     return {"merge_dedup": merge_cuda.LAUNCHES,
             "count_join": join_cuda.LAUNCHES,
-            "merge128": merge128_cuda.LAUNCHES}
+            "merge128": merge128_cuda.LAUNCHES,
+            "hash_append": hash_append_cuda.LAUNCHES}
 
 
 # the bench's end-to-end shape (bench.py): a 1 Mbp genome, 300 k reads of
@@ -1293,6 +1429,14 @@ def phase7_genome():
           f"{peak / 2**30:.2f} GiB; kernel launches {launches}")
     if not all(launches.values()):
         raise AssertionError(f"a kernel never launched: {launches}")
+    stats = profiling.GLOBAL.stats
+    appends, batches = (stats[p].calls for p in (
+        "count:device append", "count:host read/pack"))
+    if appends >= batches - 1 or launches["hash_append"] >= batches - 1:
+        raise AssertionError(f"K5 did not append by the stack: "
+                             f"{launches['hash_append']} launches, "
+                             f"{appends} append calls for {batches - 1} "
+                             f"batches")
     if abs(total - GENOME["genome_len"]) > 0.1 * GENOME["genome_len"]:
         raise AssertionError(f"contigs total {total} bp not within 10% of "
                              f"the {GENOME['genome_len']} bp genome")
@@ -1664,7 +1808,8 @@ def phase10_mesh():
     for line in logtxt.splitlines():
         if "[Contiger/sharded]" in line and "shards" in line:
             print("  " + line.split("] ", 1)[-1])
-    if not all(launches.values()):
+    # the mesh's counter hashes through nthash, not K5 (ROADMAP)
+    if not all(v for n, v in launches.items() if n != "hash_append"):
         raise AssertionError(f"a kernel never launched on the mesh path: "
                              f"{launches}")
     k = GENOME_FLAGS[1]
@@ -2058,6 +2203,76 @@ def phase11_mesh():
     return launches
 
 
+# K5's real shapes: profile.hot's stack (8 x 8192 reads of 160 bp, k = 47,
+# key_bits 36) and the stacks phase 7's genome hands it (150 bp reads in
+# rows of 152, key_bits 34)
+K5_SHAPES = {"hot": (160, 47, 36), "genome": (150, 47, 34)}
+
+
+def _k5_time(device, read_len: int, k: int, key_bits: int) -> dict:
+    """K5 and its plain version on one real stack, bitwise, timed ->
+    ms, plain_ms, the bound and the keys."""
+    import torch
+
+    from sh_assembly_tpu_torch.ops import hash_append_cuda as ha
+
+    pk, nm, ln, Lp = k5_real(device, read_len)
+    n = ln.numel() * (Lp - k + 1)
+    bufs = [torch.full((n,), -1, dtype=torch.int64, device=device)
+            for _ in range(2)]
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    run = [lambda f=f, b=b: f(b, 0, zero, ln, k, key_bits, packed=pk,
+                              nmask=nm)
+           for f, b in ((ha.hash_append_cuda, bufs[0]),
+                        (ha.hash_append_plain, bufs[1]))]
+    got, want = run[0](), run[1]()
+    torch.cuda.synchronize()
+    if int(got) != int(want) or not torch.equal(*bufs):
+        raise AssertionError(
+            f"K5 != plain version at {read_len} bp: nelts {int(got)} vs "
+            f"{int(want)}, {int((bufs[0] != bufs[1]).sum())} keys differ")
+    ms, plain_ms = _time_ms(run[0], 20), _time_ms(run[1], 3)
+    # keys written once, the packed bases, N mask and lengths read once;
+    # a rolling hash needs two 64-bit rotations and four XORs a key for
+    # both strands, a min and a mask: 16 32-bit operations at the least
+    moved = 8 * n + pk.numel() + nm.numel() + 4 * ln.numel()
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, keys=n,
+                nelts=int(got), moved=moved, **bound(moved, 16 * n))
+
+
+def phase14_k5(device):
+    """K5 against its plain version, bitwise, on the CPU test's cases and
+    more, then at its two real shapes, timed.  Returns (err, timing)."""
+    import torch
+
+    from sh_assembly_tpu_torch.ops import hash_append_cuda as ha
+
+    print("== phase 14: K5 (hash + append) against its plain version",
+          flush=True)
+    n = 0
+    before = ha.LAUNCHES
+    for case in k5_cases(device):
+        k5_compare(*case)
+        n += 1
+    launches = ha.LAUNCHES - before
+    print(f"  {n} cases identical, the words around each range untouched "
+          f"({launches} launches; k = 21, 25, 31, 47, 63, codes and packed "
+          f"rows, odd offsets, rows of 37 to 5000 bases, empty and short "
+          f"rows)")
+    if launches != n:
+        raise AssertionError(f"{launches} K5 launches for {n} cases")
+    timing = {}
+    for shape, (read_len, k, kb) in K5_SHAPES.items():
+        t = timing[shape] = _k5_time(device, read_len, k, kb)
+        print(f"  {shape} shape, 8 x 8192 reads of {read_len} bp, k={k}, "
+              f"key_bits {kb}: identical ({t['keys']} keys, {t['nelts']} "
+              f"valid); K5 median {t['ms']:.4f} ms, plain {t['plain_ms']:.3f}"
+              f" ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+              f"{t['moved'] / 1e6:.2f} MB)", flush=True)
+    torch.cuda.empty_cache()
+    return 0, timing
+
+
 def phase12_profiles():
     """The profiling entry points of the counting hot path and the
     Contiger at their defaults (``profile.{entry,hot,collect,stage2}``)."""
@@ -2126,7 +2341,7 @@ def phase13_bench():
 def main() -> int:
     import torch
 
-    phase0_device()
+    smi = phase0_device()
     sys.path.insert(0, REPO)
     from sh_assembly_tpu_torch.ops import merge_cuda as mc
 
@@ -2146,7 +2361,8 @@ def main() -> int:
         mesh = phase10_mesh()
         mp = phase11_mesh()
         phase12_profiles()
-        phase13_bench()
+        bench = phase13_bench()
+        err5, timing5b = phase14_k5(dev)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     loaded = [m for m in sys.modules
@@ -2154,6 +2370,12 @@ def main() -> int:
     if loaded:
         raise AssertionError(f"JAX package modules loaded: {loaded}")
     timing.update(timing5)
+    # K5: profile.hot's shape, phase 7's beside it
+    hot, gen = timing5b["hot"], timing5b["genome"]
+    timing["hash_append"] = {
+        **{k: hot[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms")},
+        **{f"genome_{k}": gen[k] for k in ("ms", "plain_ms", "bound_ms")}}
     ops = "sh_assembly_tpu/ops/"
     pipeline, prof = "phase 7 (cli.pipeline)", \
         "phase 8 (profile.blocksort.main); the main path: 0"
@@ -2164,13 +2386,18 @@ def main() -> int:
             ("merge128", "merge128", ops + "merge128_pallas.py:284", err3,
              pipeline),
             ("block_sort", "block_sort", "profile_blocksort.py:63", err4,
-             prof)]
+             prof),
+            ("hash_append", "hash_append",
+             "sh_assembly_tpu/models/counter.py:102 append_scan_packed (an "
+             "XLA-fused lax.scan, not a pl.pallas_call)", err5, pipeline)]
+    print(smi)  # the card and its power limit again, beside the numbers
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"sh_assembly_tpu_torch/csrc/{name}.cu",
         "replaces": where, "launches": launches[name],
         "launches_in": path, "mesh_launches": mesh.get(name, 0),
-        "mp_launches": mp.get(name, 0), "max_abs_err": e, **timing[t]}
+        "mp_launches": mp.get(name, 0), "bench_launches": bench.get(name, 0),
+        "max_abs_err": e, **timing[t]}
         for name, t, where, e, path in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,8 @@ in bench.py's order (each a function of its own):
      filled on the device to a load near 0.5 (``fill``); then stacks of
      S = 8 batches of 8192 reads of 160 bp, staged on the device in the
      2-bit transport format, are hashed and appended
-     (``counter.append_batch``) with a buffer sort and K1 fold
+     (``counter.append_scan_packed``, one launch of kernel K5 a stack)
+     with a buffer sort and K1 fold
      (``spectrum.merge``) before every group of S batches that would not
      fit; at least two merges fall in each of two timed windows, and the
      faster window is reported, with the device time of its merges
@@ -272,9 +273,7 @@ def count_window(spec: sp.Spectrum, stacks, key_bits: int):
                 spans.append((a, b))
             else:
                 spans.append(time.perf_counter() - t0)
-        for s in range(pk.shape[0]):
-            spec = counter.append_batch(spec, pk[s], nm[s], ln[s], K,
-                                        key_bits, L)
+        spec = counter.append_scan_packed(spec, pk, nm, ln, K, key_bits, L)
     _sync(device)
     merge_s = sum(a.elapsed_time(b) / 1e3 for a, b in spans) if cuda \
         else sum(spans)
@@ -456,10 +455,10 @@ def stage2(device, genome: np.ndarray, rows: int,
     for b in batches:
         if spec.n_buf + rows * W > spec.buf_capacity:
             spec = sp.merge(spec, kb)
-        spec = counter.append_batch(
-            spec, torch.from_numpy(b.packed).to(device),
-            torch.from_numpy(b.nmask).to(device),
-            torch.from_numpy(b.lengths).to(device), K, kb, Lr)
+        spec = counter.append_scan_packed(
+            spec, torch.from_numpy(b.packed[None]).to(device),
+            torch.from_numpy(b.nmask[None]).to(device),
+            torch.from_numpy(b.lengths[None]).to(device), K, kb, Lr)
     spec = sp.drop_spare(sp.merge(spec, kb))
     sp.check_overflow(spec)
     windows = n_batches * rows * W

@@ -3,21 +3,26 @@
 Counterpart of ``sh_assembly_tpu/models/counter.py``:
 
   host: read -> N-segment -> 2-bit pack (B, L) batches   (io/native, C++)
-  device, per batch: unpack -> windowed canonical ntHash -> key mod
-      2^key_bits -> append raw keys to the log buffer
+      -> stacks of ``super_batch`` batches, one pinned copy a stack array
+  device, per stack: unpack -> windowed canonical ntHash -> key mod
+      2^key_bits -> append raw keys to the log buffer, all S batches in one
+      launch of kernel K5 (``append_scan_packed``, ``ops/hash_append_cuda``)
   when the buffer would overflow: sort the buffer, fold it into the sorted
       store (kernel K1), and sweep singletons if the deNoise trigger fires
+      (``merge_maybe_sweep``)
   end of stream: finalize merge, threshold sweep, optional endDeNoise sweep
 
 The merge cadence is the JAX package's exactly, because which keys a sweep
 removes depends on it: every batch appends a fixed block of BW slots, and
-before each append the host checks ``need_merge_before``.  The JAX package
-stacks batches into fused scan programs only to save TPU dispatches; a
-per-batch loop with the same check gives the same merges.
+before each append the host checks ``need_merge_before``.  A stack goes to
+the device in one append only where the rule fires nowhere inside it; a
+stack it cuts, and the tail stack, go batch by batch with the check before
+each, so the result does not depend on ``super_batch``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 from typing import Iterable, Iterator
@@ -27,7 +32,7 @@ import torch
 
 from .. import config as cfg
 from ..io import fastq
-from ..ops import nthash, packio, spectrum as sp
+from ..ops import hash_append_cuda, packio, spectrum as sp
 from ..utils import profiling
 from ..utils.logging import log
 
@@ -96,22 +101,65 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     a freshly pinned tensor: PyTorch's pinned-memory allocator does not hand
     that block out again until the copy has finished, so no later batch can
     overwrite memory a copy is still reading.  The numpy array itself is
-    never written after this call (each batch comes in fresh arrays)."""
+    never written after this call (each stack comes in fresh arrays)."""
     t = torch.from_numpy(np.ascontiguousarray(a))
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
 
 
-def append_batch(spec: sp.Spectrum, packed: torch.Tensor, nmask: torch.Tensor,
-                 lengths: torch.Tensor, k: int, key_bits: int,
-                 row_len: int) -> sp.Spectrum:
-    """Unpack, hash and append one batch (B * (row_len - k + 1) slots)."""
-    codes = packio.unpack(packed, nmask, row_len)
-    keys, valid = nthash.windowed_canonical(codes, lengths, k)
-    keys = nthash.mask_keys(keys, key_bits)
-    keys = torch.where(valid, keys, -1)
-    return sp.insert(spec, keys)
+def _append(spec: sp.Spectrum, lengths: torch.Tensor, k: int, key_bits: int,
+            L: int, **bases) -> sp.Spectrum:
+    """Hash every window of the rows of ``lengths`` (L bases each) and
+    append the keys (K5 on CUDA, its plain twin on the CPU): n_buf advances
+    by every window, nelts by the valid ones, as ``sp.insert`` advances
+    them."""
+    nelts = hash_append_cuda.hash_append(
+        spec.buf, spec.n_buf, spec.nelts, lengths, k, key_bits, **bases)
+    return dataclasses.replace(
+        spec, n_buf=spec.n_buf + lengths.numel() * (L - k + 1), nelts=nelts)
+
+
+def count_batch(spec: sp.Spectrum, codes: torch.Tensor, lengths: torch.Tensor,
+                k: int, key_bits: int) -> sp.Spectrum:
+    """Hash every window of one batch of base codes (u8[B, L]) and append
+    the keys; the buffer is written in place."""
+    return _append(spec, lengths, k, key_bits, codes.shape[-1], codes=codes)
+
+
+def append_scan(spec: sp.Spectrum, codes: torch.Tensor, lengths: torch.Tensor,
+                k: int, key_bits: int) -> sp.Spectrum:
+    """Hash and append a stack of S batches of base codes (u8[S, B, L],
+    lengths int32[S, B]) in one launch, as S ``count_batch`` calls would.
+    No merge inside: the caller keeps the stack within the buffer's
+    headroom (``build_spectrum``'s cadence rule)."""
+    return _append(spec, lengths, k, key_bits, codes.shape[-1], codes=codes)
+
+
+def append_scan_packed(spec: sp.Spectrum, packed: torch.Tensor,
+                       nmask: torch.Tensor, lengths: torch.Tensor, k: int,
+                       key_bits: int, max_read_len: int) -> sp.Spectrum:
+    """``append_scan`` over a 2-bit packed stack (``ops/packio``): packed
+    u8[S, B, L/4], nmask u8[S, B, L/8], lengths int32[S, B], L =
+    max_read_len; the kernel unpacks on the device."""
+    if packed.shape[-1] * 4 != max_read_len:
+        raise ValueError(f"packed rows hold {packed.shape[-1] * 4} bases, "
+                         f"max_read_len is {max_read_len}")
+    return _append(spec, lengths, k, key_bits, max_read_len, packed=packed,
+                   nmask=nmask)
+
+
+def merge_maybe_sweep(spec: sp.Spectrum, rounds_left: int, threshold: int,
+                      key_bits: int) -> tuple[sp.Spectrum, int]:
+    """Buffer merge, then the deNoise sweep iff rounds remain and the
+    post-merge distinct count crosses the threshold (the reference's
+    needDeNoise).  Raises if the merge overflowed the store.  Returns
+    (spec, rounds_left)."""
+    spec = sp.merge(spec, key_bits)
+    sp.check_overflow(spec)
+    if rounds_left > 0 and spec.ndistinct >= threshold:
+        return sp.sweep(spec, key_bits), rounds_left - 1
+    return spec, rounds_left
 
 
 def build_spectrum(
@@ -121,68 +169,108 @@ def build_spectrum(
     buf_capacity: int | None = None,
     batch_cfg: cfg.BatchConfig | None = None,
     progress_every: int = 0,
+    super_batch: int = 8,
     tight_denoise: bool = True,
     device="cuda",
 ) -> tuple[sp.Spectrum, BuildStats]:
     """Count canonical k-mers of a batch stream into a merged Spectrum.
 
+    Host batches are stacked ``super_batch`` at a time; a stack goes to the
+    device in one pinned copy a stack array and, where the cadence rule
+    fires nowhere inside it, one append (``append_scan_packed``); the merge
+    and sweep (``merge_maybe_sweep``) run between appends at the exact
+    per-batch cadence, so the result does not depend on ``super_batch``.
+
     tight_denoise=False restores the pure buffer-boundary sweep cadence
     (used by cadence-characterization tests; the default is the tighter
     near-threshold trigger, see need_merge_before).
     """
+    if super_batch < 1:
+        raise ValueError(f"super_batch {super_batch} < 1")
     device = torch.device(device)
     batch_cfg = batch_cfg or cfg.BatchConfig()
     k, key_bits = sizing.k, sizing.qb + 8
-    L = batch_cfg.max_read_len
+    S, B, L = super_batch, batch_cfg.reads_per_batch, batch_cfg.max_read_len
     Lp = (L + 7) // 8 * 8  # packed transport needs L % 8 == 0
-    windows = batch_cfg.reads_per_batch * (Lp - k + 1)
+    # every batch appends exactly BW slots (padding included), so
+    # spec.n_buf is a deterministic host count
+    BW = B * (Lp - k + 1)
     if capacity is None:
         capacity = sizing.nslots  # same memory scaling rule as qf_init
     if buf_capacity is None:
-        buf_capacity = 1 << max(4 * windows - 1, (1 << 20) - 1).bit_length()
+        buf_capacity = 1 << max(4 * BW - 1, (1 << 20) - 1).bit_length()
         # a larger buffer amortizes the per-merge O(capacity) pass over the
         # store; grow toward C/2, capped at 2^27 slots (1 GiB)
         buf_capacity = max(buf_capacity, min(capacity // 2, 1 << 27))
-    if buf_capacity < 2 * windows:
+    if buf_capacity < 2 * BW:
         raise ValueError(
             f"buf_capacity {buf_capacity} must be >= 2x windows/batch "
-            f"({windows}) so one batch of keys always fits")
+            f"({BW}) so one batch of keys always fits")
 
     spec = sp.make(capacity, buf_capacity, device)
     stats = BuildStats()
     rounds_left = int(sizing.num_deNoise)
     threshold = int(sizing.ndistinct_for_deNoise)
     t0 = time.time()
-    # every batch appends exactly BW slots (padding included, sp.insert),
-    # so spec.n_buf is a deterministic host count
-    BW = batch_cfg.reads_per_batch * (Lp - k + 1)
 
-    def need_merge_before() -> bool:
-        """The per-batch cadence rule (the JAX package's, verbatim)."""
-        if spec.n_buf + BW > buf_capacity:
+    def need_merge_before(n_buf: int) -> bool:
+        """The per-batch cadence rule (the JAX package's, verbatim) at a
+        buffer fill of n_buf; ndistinct and rounds_left change only at
+        merges."""
+        if n_buf + BW > buf_capacity:
             return True
         # tighter deNoise cadence: when the buffered occurrences could push
         # ndistinct over the trigger, merge early so the sweep fires within
         # ~BC/4 of the crossing instead of up to one full buffer late.  The
         # n_buf >= BC/4 guard caps the extra merge cost at 4x cadence.
         return (tight_denoise and rounds_left > 0
-                and spec.n_buf >= buf_capacity // 4
-                and spec.ndistinct + spec.n_buf >= threshold)
+                and n_buf >= buf_capacity // 4
+                and spec.ndistinct + n_buf >= threshold)
 
-    def merge_maybe_sweep():
-        """Buffer merge, then the deNoise sweep iff rounds remain and the
-        post-merge distinct count crosses the threshold."""
+    def do_merge():
         nonlocal spec, rounds_left
-        spec = sp.merge(spec, key_bits)
+        before = rounds_left
+        spec, rounds_left = merge_maybe_sweep(spec, rounds_left, threshold,
+                                              key_bits)
         stats.merges += 1
-        sp.check_overflow(spec)
-        if rounds_left > 0 and spec.ndistinct >= threshold:
-            spec = sp.sweep(spec, key_bits)
-            rounds_left -= 1
+        if rounds_left < before:
             log(f"deNoise sweep {sizing.num_deNoise - rounds_left}: "
                 f"distinct={spec.ndistinct}")
 
+    def new_stack():
+        # FRESH arrays for every stack: a stack's copies to the device may
+        # still be reading the last one
+        return (np.zeros((S, B, Lp // 4), np.uint8),
+                np.full((S, B, Lp // 8), 0xFF, np.uint8),
+                np.zeros((S, B), np.int32))
+
+    def flush_stack(stack, fill: int):
+        nonlocal spec
+        # does the cadence rule fire anywhere inside this stack?
+        nb, split = spec.n_buf, False
+        for _ in range(fill):
+            if need_merge_before(nb):
+                split = True
+                break
+            nb += BW
+        with profiling.phase("count:device append"):
+            pk, nm, ln = (_to_device(a[:fill], device) for a in stack)
+            if not split and fill == S:
+                # one launch for the whole stack
+                spec = append_scan_packed(spec, pk, nm, ln, k, key_bits, Lp)
+                return
+        # a merge inside the stack (or its tail): batch by batch, with the
+        # cadence rule before each
+        for i in range(fill):
+            if need_merge_before(spec.n_buf):
+                with profiling.phase("count:merge"):
+                    do_merge()
+            with profiling.phase("count:device append"):
+                spec = append_scan_packed(spec, pk[i:i + 1], nm[i:i + 1],
+                                          ln[i:i + 1], k, key_bits, Lp)
+
     pad_cols = Lp - L
+    stack, fill = new_stack(), 0
     it = _prefetch(iter(batches))
     while True:
         with profiling.phase("count:host read/pack"):
@@ -201,18 +289,18 @@ def build_spectrum(
                     codes = np.pad(codes, ((0, 0), (0, pad_cols)),
                                    constant_values=5)
                 p, m = packio.pack_np(codes)
+            stack[0][fill], stack[1][fill], stack[2][fill] = \
+                p, m, batch.lengths
+        fill += 1
         stats.batches += 1
-        if need_merge_before():
-            with profiling.phase("count:merge"):
-                merge_maybe_sweep()
-        with profiling.phase("count:device append"):
-            spec = append_batch(
-                spec, _to_device(p, device), _to_device(m, device),
-                _to_device(np.asarray(batch.lengths, np.int32), device),
-                k, key_bits, Lp)
-        if progress_every and stats.batches % progress_every == 0:
-            log(f"batch {stats.batches}: nelts={int(spec.nelts)} "
-                f"ndistinct(last merge)={spec.ndistinct}")
+        if fill == S:
+            flush_stack(stack, fill)
+            stack, fill = new_stack(), 0
+            if progress_every and stats.batches % progress_every < S:
+                log(f"batch {stats.batches}: nelts={int(spec.nelts)} "
+                    f"ndistinct(last merge)={spec.ndistinct}")
+    if fill:
+        flush_stack(stack, fill)
 
     with profiling.phase("count:finalize merge+sweeps"):
         spec = sp.merge(spec, key_bits)

@@ -39,7 +39,11 @@ def _rot_tables_np(L: int):
     return A.view(np.int64), B.view(np.int64)
 
 
-def _rot_tables(L: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+@functools.lru_cache(maxsize=16)
+def _rot_tables(L: int, device: torch.device
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_rot_tables_np(L)`` on ``device``, copied there once per (L,
+    device); callers only read them."""
     A, B = _rot_tables_np(L)
     return (torch.from_numpy(A.copy()).to(device),
             torch.from_numpy(B.copy()).to(device))

@@ -6,9 +6,9 @@ Counterpart of ``__graft_entry__.entry``: ``entry()`` returns ``(fn,
 example_args)`` for one device step of the k = 47 counting stage at qb =
 25 (key_bits 33): the canonical ntHash of every window of a batch of 256
 random reads of 160 bp (``np.random.default_rng(0)``), the key mask, and
-the append to a spectrum's buffer (``spectrum.insert``).  ``main`` runs
-the step once and logs what it appended.  (The multi-chip dry run is
-``parallel/dryrun.py``.)
+the append to a spectrum's buffer (``counter.count_batch``, kernel K5 on
+a CUDA device).  ``main`` runs the step once and logs what it appended.
+(The multi-chip dry run is ``parallel/dryrun.py``.)
 """
 
 from __future__ import annotations
@@ -20,7 +20,8 @@ import numpy as np
 import torch
 
 from ..cli.cqf_denoise import resolve_device
-from ..ops import nthash, spectrum as sp
+from ..models import counter
+from ..ops import spectrum as sp
 from ..utils.logging import log
 
 K, KEY_BITS = 47, 33
@@ -32,9 +33,7 @@ def step(spec: sp.Spectrum, codes: torch.Tensor,
          lengths: torch.Tensor) -> sp.Spectrum:
     """Hash every window, mask the keys, append them (-1 where a window
     is not valid)."""
-    keys, valid = nthash.windowed_canonical(codes, lengths, K)
-    return sp.insert(spec, torch.where(
-        valid, nthash.mask_keys(keys, KEY_BITS), -1).reshape(-1))
+    return counter.count_batch(spec, codes, lengths, K, KEY_BITS)
 
 
 def entry(device="cuda"):

@@ -10,8 +10,9 @@ them over.  Times (CUDA-event medians on a CUDA device):
 
   1. unpack and hash alone: ``packio.unpack`` and
      ``nthash.windowed_canonical`` over the S batches
-  2. hash and append with no merge: ``counter.append_batch`` of the S
-     batches into an empty buffer
+  2. hash and append with no merge: ``counter.append_scan_packed`` of the
+     S-stack into an empty buffer, one launch of kernel K5 on a CUDA
+     device (the log line gives K5's launches)
   3. the buffer sort at BC and BC / 4 keys: ``profile.sort``'s variants
   4. K1 alone on presorted input (``profile.kernels.big_case``: half the
      slots live, a full sorted buffer): ns a key, M keys/s and the
@@ -32,7 +33,8 @@ import torch
 
 from ..cli.cqf_denoise import resolve_device
 from ..models import counter
-from ..ops import merge_cuda, nthash, packio, spectrum as sp
+from ..ops import hash_append_cuda, merge_cuda, nthash, packio, \
+    spectrum as sp
 from ..utils.logging import log
 from ..utils.profiling import median_ms
 from . import kernels, sort
@@ -87,17 +89,17 @@ def run(device, log2_capacity: int = 28, log2_buf: int = 27,
     fresh = sp.make(1 << 10, BC, device)
 
     def append():
-        spec = fresh
-        for s in range(stacks):
-            spec = counter.append_batch(spec, packed[s], nmask[s],
-                                        lengths[s], K, key_bits, L)
-        return spec
+        return counter.append_scan_packed(fresh, packed, nmask, lengths, K,
+                                          key_bits, L)
 
+    launches = hash_append_cuda.LAUNCHES
     res["appended"] = append().n_buf
     res["append_ms"] = median_ms(append, reps, device)
+    res["k5_launches"] = hash_append_cuda.LAUNCHES - launches
     log(f"hash + append (no merge): {res['append_ms']:.3f} ms = "
         f"{res['append_ms'] * 1e6 / n_keys:.3f} ns/key "
-        f"({n_keys / res['append_ms'] / 1e3:.0f} M keys/s)")
+        f"({n_keys / res['append_ms'] / 1e3:.0f} M keys/s); K5 launches "
+        f"{res['k5_launches']}")
     del fresh, packed, nmask, lengths
 
     res["sort_ms"] = {n: sort.run(device, n)

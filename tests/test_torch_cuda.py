@@ -1,6 +1,7 @@
 """Kernels K1 (csrc/merge_dedup.cu), K2 (csrc/count_join.cu), K3
-(csrc/merge128.cu) and K4 (csrc/block_sort.cu) against their plain PyTorch
-versions on the GPU, bitwise, and the counting stage, the Contiger, their
+(csrc/merge128.cu), K4 (csrc/block_sort.cu) and K5 (csrc/hash_append.cu)
+against their plain PyTorch versions on the GPU, bitwise, and the
+counting stage, the Contiger, their
 sharded forms (4 shards on the card), the set operations and the traveled
 queries on CUDA against the CPU path.
 
@@ -19,8 +20,8 @@ from sh_assembly_tpu_torch import config as cfg
 from sh_assembly_tpu_torch.io import fastq
 from sh_assembly_tpu_torch.models import counter
 from sh_assembly_tpu_torch.models import contiger
-from sh_assembly_tpu_torch.ops import blocksort_cuda, join_cuda, \
-    merge128_cuda, merge_cuda
+from sh_assembly_tpu_torch.ops import blocksort_cuda, hash_append_cuda, \
+    join_cuda, merge128_cuda, merge_cuda
 from sh_assembly_tpu_torch.ops import spectrum as sp
 
 pytestmark = pytest.mark.cuda
@@ -340,3 +341,36 @@ def test_library_surface_cuda_matches_cpu(gpu):
     # CUDA = CPU for the set operations and the traveled queries, with
     # inner_product and intersect launching K2 on the card only
     chip_smoke.library_cut(gpu, a, b, kb, m=100_000, Cm=1 << 17)
+
+
+def test_k5_matches_plain(gpu):
+    n = 0
+    for case in chip_smoke.k5_cases(gpu):
+        before = hash_append_cuda.LAUNCHES
+        chip_smoke.k5_compare(*case)
+        assert hash_append_cuda.LAUNCHES == before + 1, case[0]
+        n += 1
+    assert n > 20
+
+
+def test_k5_refuses_what_the_kernel_does_not_take(gpu):
+    codes, lengths = chip_smoke.k5_stack(3, 47)
+    c, ln = torch.from_numpy(codes), torch.from_numpy(lengths)
+    buf = torch.full((4096,), -1, dtype=torch.int64, device=gpu)
+    zero = torch.zeros((), dtype=torch.int64, device=gpu)
+    before = hash_append_cuda.LAUNCHES
+    for kw in (dict(codes=c), dict(codes=c.to(gpu)[:2])):
+        with pytest.raises(ValueError):  # a CPU tensor, a wrong shape
+            hash_append_cuda.hash_append(buf, 0, zero, ln.to(gpu), 47, 36,
+                                         **kw)
+    with pytest.raises(ValueError):  # the CUDA wrapper takes no CPU buffer
+        hash_append_cuda.hash_append_cuda(buf.cpu(), 0, zero.cpu(), ln, 47,
+                                          36, codes=c)
+    with pytest.raises(ValueError):  # past the buffer's end
+        hash_append_cuda.hash_append(buf, 4000, zero, ln.to(gpu), 47, 36,
+                                     codes=c.to(gpu))
+    with pytest.raises(ValueError):  # not contiguous
+        hash_append_cuda.hash_append(
+            buf, 0, zero, ln.to(gpu).t().contiguous().t(), 47, 36,
+            codes=c.to(gpu).transpose(0, 1).contiguous().transpose(0, 1))
+    assert hash_append_cuda.LAUNCHES == before
