@@ -10,7 +10,9 @@ exits non-zero without printing a result:
      is an error.
   1. build: compiles kernels K1-K5 (csrc/merge_dedup.cu, count_join.cu,
      merge128.cu, block_sort.cu, hash_append.cu) from the checkout, one
-     nvcc each, in parallel.
+     nvcc each, in parallel; prints K5's tiles at its two real shapes and
+     for rows of 20,000 bases (rows or segments a block, shared memory,
+     registers, spills, blocks an SM).
   2. K1 against its plain PyTorch twin on the card, bitwise: the merge
      cases of the JAX package's kernel tests, the maximum key, counts at
      the cap, empty inputs, runs spanning many tiles, an overflowing
@@ -82,17 +84,18 @@ exits non-zero without printing a result:
      --meta-only printing the .ser header.
  10. the mesh path, n key-range shards on the card (``parallel/``):
      (a) on phase 3's reads, cqf_denoise --mesh 8 with --device cpu and
-     cuda, byte-identical .ser files with a deNoise sweep mid-stream, and
-     contiger --mesh 4 on both devices, byte-identical unitigs.fa; (b)
-     phase 4's reads and flags through --mesh 8 (2^26 slots a shard),
-     byte-identical to phase 4's .ser (no sweep fires mid-stream), rate,
-     wall, peak memory, K1 launches, and the buffer sort's bytes a key at
-     its peak;
+     cuda, byte-identical .ser files with a deNoise sweep mid-stream, K1
+     and K5 launched on the card only, and contiger --mesh 4 on both
+     devices, byte-identical unitigs.fa; (b) phase 4's reads and flags
+     through --mesh 8 (2^26 slots a shard), byte-identical to phase 4's
+     .ser (no sweep fires mid-stream), rate, wall, peak memory, K1 and K5
+     launches, and the buffer sort's bytes a key at its peak;
      (c) phase 7's 12 Mbp genome through cqf_denoise --mesh 4 and contiger
      --mesh 4: the unitigs the same set as phase 7's (cli.compare_contigs)
      and cli.minia's contigs within 10% of the genome, with phase
-     breakdowns, peaks and K1-K3 launches (the mesh's counter hashes
-     without K5); (d) profile.mesh (routed
+     breakdowns, peaks and K1-K3 and K5 launches (the mesh's counter
+     hashes through K5, one launch a shard a scan); each counting line
+     prints count:mesh scan and K5's launches; (d) profile.mesh (routed
      against one shard alone, n = 8) and dryrun_multichip(8).
  11. the multi-process mesh (``collectives.Distributed`` over
      torch.distributed; workers spawned from this file): (a) phase 7's
@@ -106,7 +109,9 @@ exits non-zero without printing a result:
      tail (``finish_parts``) on them in this process byte-identical to
      10a's contiger --mesh 4; (c) the NCCL branch: one process of 4 shards
      counts phase 3's reads and runs (b)'s steps, bitwise as well.  Each
-     process's wall, phases, peak memory and kernel launches are printed.
+     process's wall, phases, peak memory and kernel launches are printed;
+     11a requires K5 launches in its processes and prints count:mesh scan
+     beside them.
 
  12. the profiling entry points of the counting hot path and the Contiger
      at their defaults: profile.entry (one fused counting step,
@@ -120,18 +125,24 @@ exits non-zero without printing a result:
      kernels are built): it must exit 0 with the primary JSON line last
      (at least 2 merges in its timed window) and a warm end-to-end line
      before it, K1 bitwise equal to its plain twin, no section skipped
-     for the deadline; prints its JSON and ``#`` lines and the K1-K3 and
-     K5 launches of the whole run.
+     for the deadline; prints its JSON and ``#`` lines, the loaded-counting
+     windows and the K1-K3 and K5 launches of the whole run.
  14. K5 (hash + append) against its plain PyTorch version on the card,
      bitwise, words around the written range included: the cases of the
      CPU test (tests/test_torch_append_scan.py: k = 21, 47, 63, Ns, rows
      shorter than k, zero-length rows, an odd starting fill) in both
      input forms (base codes and the 2-bit transport), batches of 100
      rows, rows of 37, 152 and 5000 bases, batches of nothing but empty
-     or short rows; then its two real shapes, profile.hot's (8 x 8192
-     reads of 160 bp, k = 47, key_bits 36) and phase 7's (150 bp reads in
-     rows of 152, key_bits 34), timed against the plain version with
-     their bounds.
+     or short rows; the redesign's edges (k5_edge_cases): rows of 64, 65
+     and 160 bases (the rotations wrap), k = 1 and k = 63 on rows of 63,
+     rows of 20,000 bases cut into segments with Ns on every seam, rows
+     of length 0, below k and ending on a seam; then its two real shapes,
+     profile.hot's (8 x 8192 reads of 160 bp, k = 47, key_bits 36) and
+     phase 7's (150 bp reads in rows of 152, key_bits 34), timed against
+     the plain version with their bounds: the kernel's device time (20
+     launches queued behind a spin kernel, timed back to back by CUDA
+     events) and a wrapper call's (CUDA events around one call, the
+     host's launch path included).
 
 ``python3 chip_smoke.py --nccl-processes N`` runs phases 0, 1 and 11a
 alone at N processes x 1 shard over NCCL, a card each (N cards).
@@ -141,9 +152,10 @@ the kernels, and the one before that repeats phase 0's card name and power
 limit.  The kernels line gives launches on the path that runs each (phase
 7 for K1-K3 and K5, phase 8's profiling entry point for K4, which the main
 path never launches), launches on the mesh path (phase 10c), launches summed over
-the processes of the multi-process path (mp_launches: 11a for K1, 11b for
-K2 and K3), launches in the bench (bench_launches, phase 13), times
-(K5's at profile.hot's shape, genome_* at phase 7's), and each
+the processes of the multi-process path (mp_launches: 11a for K1 and K5,
+11b for K2 and K3), launches in the bench (bench_launches, phase 13), times
+(K5's at profile.hot's shape, genome_* at phase 7's; K5's ms is its
+device time, wrapper_ms a wrapper call's), and each
 kernel's bound, the least time the card could
 take, computed from this run's shapes and results: the larger of the
 bytes moved (each input read once, the live result written once) over
@@ -659,28 +671,31 @@ def k5_stack(seed: int, k: int, S: int = 3, B: int = 5, L: int = 72):
     return codes, lengths
 
 
+def k5_forms(device, codes, lengths):
+    """(form, bases, lengths) of one stack on device: the base codes, and
+    the 2-bit transport where rows are a multiple of 8 bases."""
+    import torch
+
+    from sh_assembly_tpu_torch.ops import packio
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    yield "codes", dict(codes=t(codes)), t(lengths)
+    if codes.shape[-1] % 8 == 0:
+        packed, nmask = packio.pack_np(codes)
+        yield "packed", dict(packed=t(packed), nmask=t(nmask)), t(lengths)
+
+
 def k5_cases(device):
     """(name, bases, lengths, k, key_bits, n_buf) tuples for K5: ``bases``
     is dict(codes=...) or dict(packed=..., nmask=...) of tensors on
     device.  The CPU test's stacks and batches in both forms at an odd
     starting fill, then 8 batches of 100 rows, rows of 152 bases (phase
-    7's), rows of 5000 (one row a block), a batch of nothing but
-    zero-length rows and one of rows too short for any window."""
-    import torch
-
-    from sh_assembly_tpu_torch.ops import packio
-
-    def forms(codes, lengths):
-        packed, nmask = packio.pack_np(codes) if codes.shape[-1] % 8 == 0 \
-            else (None, None)
-        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-        yield "codes", dict(codes=t(codes)), t(lengths)
-        if packed is not None:
-            yield "packed", dict(packed=t(packed), nmask=t(nmask)), t(lengths)
-
+    7's), rows of 5000 (two segments a row), a batch of nothing but
+    zero-length rows and one of rows too short for any window, then
+    k5_edge_cases."""
     for k, kb in K5_GEOMETRIES:
         codes, lengths = k5_stack(200 + k, k)
-        for form, bases, ln in forms(codes, lengths):
+        for form, bases, ln in k5_forms(device, codes, lengths):
             yield f"k{k}_stack_{form}", bases, ln, k, kb, 3
             one = {n: v[1] for n, v in bases.items()}
             yield f"k{k}_batch_{form}", one, ln[1], k, kb, 1001
@@ -689,12 +704,51 @@ def k5_cases(device):
                                       ("rows5000", 7, 63, (1, 3, 5000)),
                                       ("odd_len", 8, 25, (2, 7, 37))):
         codes, lengths = k5_stack(seed, k, S, B, L)
-        for form, bases, ln in forms(codes, lengths):
+        for form, bases, ln in k5_forms(device, codes, lengths):
             yield f"{name}_{form}", bases, ln, k, 36, 7
     codes, lengths = k5_stack(9, 47, 1, 16, 64)
     for fill, name in ((0, "all_empty"), (46, "all_short")):
-        for form, bases, ln in forms(codes, np.full_like(lengths, fill)):
+        for form, bases, ln in k5_forms(device, codes,
+                                        np.full_like(lengths, fill)):
             yield f"{name}_{form}", bases, ln, 47, 36, 0
+    yield from k5_edge_cases(device)
+
+
+# Rows of K5's edge cases longer than one block's tile
+K5_LONG_ROW = 20_000
+
+
+def k5_edge_cases(device):
+    """k5_cases' tuples at the edges of K5's tiling: rows of 64, 65 and 160
+    bases (rotations by i mod 64 wrap), k = 1 and k = 63 on rows of 63
+    (one window a row), and rows of K5_LONG_ROW bases, which the kernel
+    cuts into segments (``hash_append_cuda.plan``): Ns on both sides of
+    every seam and of every segment's overlap, and rows of length 0, k - 1,
+    ending one base past a seam's overlap, and full."""
+    from sh_assembly_tpu_torch.ops import hash_append_cuda as ha
+
+    for name, seed, k, (S, B, L) in (("L64", 11, 31, (2, 40, 64)),
+                                      ("L65", 12, 33, (2, 40, 65)),
+                                      ("L160", 13, 47, (2, 40, 160)),
+                                      ("k1_L63", 14, 1, (2, 30, 63)),
+                                      ("k63_L63", 15, 63, (2, 30, 63))):
+        codes, lengths = k5_stack(seed, k, S, B, L)
+        for form, bases, ln in k5_forms(device, codes, lengths):
+            yield f"{name}_{form}", bases, ln, k, 36, 3
+    for k in (47, 63):
+        L = K5_LONG_ROW
+        p = ha.plan(5, L, k)
+        sw = p["segment_windows"]
+        if p["segments_per_row"] < 2:
+            raise AssertionError(f"rows of {L} bases fit one tile: {p}")
+        codes, _ = k5_stack(16 + k, k, 1, 5, L)
+        lengths = np.array([[L, 0, k - 1, sw + k, L - 3]], np.int32)
+        codes[np.arange(L)[None, None, :] >= lengths[..., None]] = 5
+        for seam in range(sw, L - k + 1, sw):
+            for j in (seam - 1, seam, seam + k - 2, seam + k - 1):
+                codes[0, [0, 4], j] = 4
+        for form, bases, ln in k5_forms(device, codes, lengths):
+            yield f"long{L}_k{k}_{form}", bases, ln, k, 34, 5
 
 
 def k5_compare(name, bases, ln, k, key_bits, n_buf) -> None:
@@ -840,6 +894,12 @@ def phase1_build():
                  "hash_append"):
         print(f"built {name} (sm_90a) -> {_build.lib_path(name)}")
     print(f"  all kernels built in {time.time() - t0:.2f} s")
+    # K5's tiles: its two real stacks (8 x 8192 rows) and a long row
+    for what, rows, L in (("profile.hot's stack", 8 * 8192, 160),
+                          ("phase 7's stack", 8 * 8192, 152),
+                          (f"rows of {K5_LONG_ROW}", 4, K5_LONG_ROW)):
+        print(f"  K5 plan, {what} at k=47: "
+              f"{hash_append_cuda.plan(rows, L, 47)}")
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -847,6 +907,25 @@ def _time_ms(fn, reps: int) -> float:
     from sh_assembly_tpu_torch.utils.profiling import median_ms
 
     return median_ms(fn, reps, "cuda")
+
+
+def _queued_ms(fn, reps: int) -> float:
+    """Device milliseconds a call of fn, the host's launch path hidden: a
+    spin kernel holds the stream while reps calls queue up behind it, and
+    CUDA events time the calls back to back."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)  # ~50 ms of spinning
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def _compare(name, kern, plain) -> int:
@@ -1701,6 +1780,21 @@ def _mesh_cli(argv, cli):
     return stats, logtxt, wall, torch.cuda.max_memory_allocated(), phases
 
 
+def _scan_note(phases, k5: int) -> str:
+    """The mesh counter's scan phase ((seconds, calls) in ``phases``) and
+    K5's launches, for a line."""
+    sec, calls = phases.get("count:mesh scan", (0.0, 0))
+    return f"count:mesh scan {sec:.3f} s in {calls} calls, K5 launches {k5}"
+
+
+def _mesh_phases() -> dict:
+    """The phases of the last CLI run: name -> (seconds, calls)."""
+    from sh_assembly_tpu_torch.utils import profiling
+
+    return {n: (s.seconds, s.calls)
+            for n, s in profiling.GLOBAL.stats.items()}
+
+
 def phase10_mesh():
     """The mesh path (``parallel/``, --mesh on both CLIs) on the card.
     Returns the kernel launches of 10c, the mesh path at a genome users
@@ -1708,6 +1802,7 @@ def phase10_mesh():
     import torch
 
     from sh_assembly_tpu_torch.cli import compare_contigs, minia
+    from sh_assembly_tpu_torch.ops import hash_append_cuda as ha
     from sh_assembly_tpu_torch.ops import merge_cuda as mc
     from sh_assembly_tpu_torch.parallel import dryrun
     from sh_assembly_tpu_torch.profile import mesh as pmesh
@@ -1726,15 +1821,18 @@ def phase10_mesh():
             "-i", os.path.join(d, "ReadFiles.txt"), "-o", ser, "--mesh",
             "8", "--device", dev])
         mid = logtxt.count(" mid-stream: ")
+        k5 = _launches()["hash_append"]
         print(f"  10a cqf_denoise --mesh 8 {dev}: {stats} mid-stream sweeps "
-              f"{mid}, wall {wall:.1f} s, launches {_launches()}")
+              f"{mid}, wall {wall:.1f} s, launches {_launches()}; "
+              f"{_scan_note(_mesh_phases(), k5)}")
         out[dev] = (open(ser, "rb").read(), mid, _launches())
     if out["cpu"][0] != out["cuda"][0]:
         raise AssertionError("--mesh 8: CPU and CUDA .ser files differ")
-    if out["cuda"][1] < 1 or not out["cuda"][2]["merge_dedup"] or \
-            out["cpu"][2]["merge_dedup"]:
-        raise AssertionError("--mesh 8: no mid-stream sweep, or K1 not on "
-                             "the card only")
+    if out["cuda"][1] < 1 or any(
+            not out["cuda"][2][n] or out["cpu"][2][n]
+            for n in ("merge_dedup", "hash_append")):
+        raise AssertionError("--mesh 8: no mid-stream sweep, or K1 or K5 "
+                             "not on the card only")
     print(f"  10a .ser byte-identical ({len(out['cpu'][0])} bytes)")
     fa = {}
     for dev in ("cpu", "cuda"):
@@ -1764,7 +1862,7 @@ def phase10_mesh():
         _run_cli(MAIN_FLAGS + ["-i", os.path.join(d, "ReadFiles.txt"),
                                "-o", single, "--device", "cuda"])
     ser = os.path.join(d, "mesh8.ser")
-    mc.LAUNCHES = 0
+    _reset_launches()
     stats, logtxt, wall, peak, phases = _mesh_cli(
         MAIN_FLAGS + ["-i", os.path.join(d, "ReadFiles.txt"), "-o", ser,
                       "--mesh", "8", "--device", "cuda"], "cqf_denoise")
@@ -1773,7 +1871,9 @@ def phase10_mesh():
     print(f"  10b --mesh 8: {stats}; counting {count_s:.2f} s "
           f"({stats['kmers'] / count_s:.0f} k-mers/s), CLI wall {wall:.2f} s, "
           f"peak device memory {peak / 2**30:.2f} GiB, K1 launches "
-          f"{mc.LAUNCHES}")
+          f"{mc.LAUNCHES}; {_scan_note(_mesh_phases(), ha.LAUNCHES)}")
+    if not ha.LAUNCHES:
+        raise AssertionError("--mesh 8: K5 never launched")
     if " mid-stream: " in logtxt or open(single, "rb").read() != \
             open(ser, "rb").read():
         raise AssertionError("--mesh 8 .ser differs from phase 4's single "
@@ -1793,7 +1893,7 @@ def phase10_mesh():
         "-i", os.path.join(d, "ReadFiles.txt"), "-o", ser, "--mesh", "4",
         "--device", "cuda"], "cqf_denoise")
     print(f"  10c cqf_denoise --mesh 4: {stats}; wall {wall:.2f} s, peak "
-          f"{peak / 2**30:.2f} GiB")
+          f"{peak / 2**30:.2f} GiB; {_scan_note(_mesh_phases(), ha.LAUNCHES)}")
     for name, sec in sorted(phases.items(), key=lambda kv: -kv[1]):
         print(f"    {name:<30} {sec:9.3f} s")
     _, logtxt, wall, peak, phases = _mesh_cli([
@@ -1808,8 +1908,7 @@ def phase10_mesh():
     for line in logtxt.splitlines():
         if "[Contiger/sharded]" in line and "shards" in line:
             print("  " + line.split("] ", 1)[-1])
-    # the mesh's counter hashes through nthash, not K5 (ROADMAP)
-    if not all(v for n, v in launches.items() if n != "hash_append"):
+    if not all(launches.values()):
         raise AssertionError(f"a kernel never launched on the mesh path: "
                              f"{launches}")
     k = GENOME_FLAGS[1]
@@ -1969,6 +2068,8 @@ def _mp_worker(rank, world, local, backend, store, out_dir, tasks):
         res.update(wall=time.time() - t0, peak=torch.cuda.max_memory_allocated(),
                    **{f"launches_{k}": v for k, v in _launches().items()},
                    **{f"phase_{k}": v.seconds
+                      for k, v in profiling.GLOBAL.stats.items()},
+                   **{f"calls_{k}": v.calls
                       for k, v in profiling.GLOBAL.stats.items()})
         np.savez(os.path.join(out_dir, f"{name}_{rank}.npz"), **res)
     dist.destroy_process_group()
@@ -2083,7 +2184,7 @@ def _count_setup(flags, files, n: int):
 def phase11a_count(world: int = 2, local: int = 2, backend: str = "gloo"):
     """11a: phase 7's reads counted by ``world`` processes of ``local``
     shards each, every shard bitwise equal to the in-process mesh's.
-    Returns the K1 launches summed over the processes."""
+    Returns the kernel launches summed over the processes (K1 and K5)."""
     from sh_assembly_tpu_torch.parallel import driver
 
     n = world * local
@@ -2104,11 +2205,18 @@ def phase11a_count(world: int = 2, local: int = 2, backend: str = "gloo"):
             raise AssertionError(f"11a: a process counted {r} against "
                                  f"{stats}")
     launches = _mp_report(res, "11a")
-    if not launches["merge_dedup"]:
-        raise AssertionError("11a: K1 never launched in the workers")
+    for rank, r in enumerate(res):
+        name = "count:mesh scan"
+        scan = {name: (float(r[f"phase_{name}"]), int(r[f"calls_{name}"]))}
+        print(f"    11a rank {rank}: "
+              f"{_scan_note(scan, int(r['launches_hash_append']))}")
+    if not launches["merge_dedup"] or not launches["hash_append"]:
+        raise AssertionError(f"11a: K1 or K5 never launched in the workers: "
+                             f"{launches}")
     print(f"  11a every shard's whole state bitwise equal to the in-process "
           f"mesh's; K1 launches over the processes "
-          f"{launches['merge_dedup']}", flush=True)
+          f"{launches['merge_dedup']}, K5 {launches['hash_append']}",
+          flush=True)
     del specs
     return launches
 
@@ -2210,8 +2318,11 @@ K5_SHAPES = {"hot": (160, 47, 36), "genome": (150, 47, 34)}
 
 
 def _k5_time(device, read_len: int, k: int, key_bits: int) -> dict:
-    """K5 and its plain version on one real stack, bitwise, timed ->
-    ms, plain_ms, the bound and the keys."""
+    """K5 and its plain version on one real stack, bitwise, timed -> ms
+    (device time a call, launches queued back to back), wrapper_ms (CUDA
+    events around one wrapper call: the host's launch path included),
+    plain_ms, the bound, the keys and the device time of a fill of the
+    keys' buffer (store_ms)."""
     import torch
 
     from sh_assembly_tpu_torch.ops import hash_append_cuda as ha
@@ -2231,13 +2342,18 @@ def _k5_time(device, read_len: int, k: int, key_bits: int) -> dict:
         raise AssertionError(
             f"K5 != plain version at {read_len} bp: nelts {int(got)} vs "
             f"{int(want)}, {int((bufs[0] != bufs[1]).sum())} keys differ")
-    ms, plain_ms = _time_ms(run[0], 20), _time_ms(run[1], 3)
+    wrapper_ms, plain_ms = _time_ms(run[0], 20), _time_ms(run[1], 3)
+    ms = _queued_ms(run[0], 20)
+    # what writing the keys alone takes on this card: a fill of the buffer
+    store_ms = _queued_ms(lambda: bufs[1].fill_(-1), 20)
     # keys written once, the packed bases, N mask and lengths read once;
     # a rolling hash needs two 64-bit rotations and four XORs a key for
     # both strands, a min and a mask: 16 32-bit operations at the least
     moved = 8 * n + pk.numel() + nm.numel() + 4 * ln.numel()
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, keys=n,
-                nelts=int(got), moved=moved, **bound(moved, 16 * n))
+    return dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                library_ms=None, keys=n,
+                nelts=int(got), moved=moved, store_ms=store_ms,
+                **bound(moved, 16 * n))
 
 
 def phase14_k5(device):
@@ -2256,9 +2372,10 @@ def phase14_k5(device):
         n += 1
     launches = ha.LAUNCHES - before
     print(f"  {n} cases identical, the words around each range untouched "
-          f"({launches} launches; k = 21, 25, 31, 47, 63, codes and packed "
-          f"rows, odd offsets, rows of 37 to 5000 bases, empty and short "
-          f"rows)")
+          f"({launches} launches; k = 1, 21, 25, 31, 33, 47, 63, codes and "
+          f"packed rows, odd offsets, rows of 37 to {K5_LONG_ROW} bases, "
+          f"rotations wrapping at 64, 65 and 160, segments with Ns on their "
+          f"seams, empty and short rows)")
     if launches != n:
         raise AssertionError(f"{launches} K5 launches for {n} cases")
     timing = {}
@@ -2266,9 +2383,11 @@ def phase14_k5(device):
         t = timing[shape] = _k5_time(device, read_len, k, kb)
         print(f"  {shape} shape, 8 x 8192 reads of {read_len} bp, k={k}, "
               f"key_bits {kb}: identical ({t['keys']} keys, {t['nelts']} "
-              f"valid); K5 median {t['ms']:.4f} ms, plain {t['plain_ms']:.3f}"
+              f"valid); K5 device {t['ms']:.4f} ms (a wrapper call "
+              f"{t['wrapper_ms']:.4f} ms), plain {t['plain_ms']:.3f}"
               f" ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
-              f"{t['moved'] / 1e6:.2f} MB)", flush=True)
+              f"{t['moved'] / 1e6:.2f} MB), a fill of the keys' buffer "
+              f"{t['store_ms']:.4f} ms of device time", flush=True)
     torch.cuda.empty_cache()
     return 0, timing
 
@@ -2317,8 +2436,10 @@ def phase13_bench():
     for line in logtxt.splitlines():
         if line.startswith("# "):
             print(f"  {line}")
-    print(f"  bench wall {wall:.1f} s; kernel launches {launches}",
-          flush=True)
+    windows = [line.split("(", 1)[1].rstrip(")") for line in
+               logtxt.splitlines() if line.startswith("# primary window")]
+    print(f"  bench wall {wall:.1f} s; kernel launches {launches}; loaded "
+          f"counting windows: {'; '.join(windows)}", flush=True)
     if rc != 0:
         raise AssertionError(f"the bench exited {rc}")
     primary = json.loads(lines[-1]) if lines else {}
@@ -2373,9 +2494,10 @@ def main() -> int:
     # K5: profile.hot's shape, phase 7's beside it
     hot, gen = timing5b["hot"], timing5b["genome"]
     timing["hash_append"] = {
-        **{k: hot[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                               "library_ms")},
-        **{f"genome_{k}": gen[k] for k in ("ms", "plain_ms", "bound_ms")}}
+        **{k: hot[k] for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms")},
+        **{f"genome_{k}": gen[k] for k in ("ms", "wrapper_ms", "plain_ms",
+                                           "bound_ms")}}
     ops = "sh_assembly_tpu/ops/"
     pipeline, prof = "phase 7 (cli.pipeline)", \
         "phase 8 (profile.blocksort.main); the main path: 0"

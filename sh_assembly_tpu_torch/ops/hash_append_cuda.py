@@ -5,8 +5,11 @@ Replaces the device step of the JAX package's fused counting scan,
 ``sh_assembly_tpu/models/counter.py:append_scan_packed`` (and
 ``append_scan``, ``count_batch``), an XLA-fused ``lax.scan`` that reaches
 no ``pl.pallas_call``, with the hand-written CUDA kernel
-``csrc/hash_append.cu`` (its header says what bounds it on the card and
-what the design does about it).
+``csrc/hash_append.cu``: a block stages a tile of bases once, scans their
+prefix XORs in shared memory and computes each key from four prefix
+values (its header says what bounds it on the card and what the design
+does about it).  The mesh counter's hash (``parallel/sharded.py``) calls
+it with ``codes`` into a scratch buffer.
 
 Contract of ``hash_append(buf, n_buf, nelts, lengths, k, key_bits, *,
 packed=None, nmask=None, codes=None)``:
@@ -42,7 +45,8 @@ from . import bits, nthash, packio
 # Kernel launches (incremented once per launch of the CUDA kernel only).
 LAUNCHES = 0
 
-# Longest row the kernel stages (its shared memory stays under 48 KB).
+# Longest row the kernel takes (a row longer than a block's tile of 4096
+# bases is cut into segments that overlap by k - 1 bases).
 MAX_ROW = 32768
 
 _lib = None
@@ -64,6 +68,9 @@ def _load():
             ctypes.c_void_p, ctypes.c_void_p,    # out, nelts
             ctypes.c_void_p,                     # stream
         ]
+        lib.hash_append_plan.restype = ctypes.c_int
+        lib.hash_append_plan.argtypes = [ctypes.c_longlong, ctypes.c_int,
+                                         ctypes.c_int, ctypes.c_void_p]
         _lib = lib
     return _lib
 
@@ -71,6 +78,24 @@ def _load():
 def build() -> None:
     """Compile (if needed) and load the kernel library."""
     _load()
+
+
+PLAN_FIELDS = ("rows_per_block", "segment_windows", "segments_per_row",
+               "blocks", "dynamic_smem", "static_smem", "registers",
+               "local_bytes", "blocks_per_sm")
+
+
+def plan(rows: int, L: int, k: int) -> dict:
+    """How a launch of ``rows`` rows of L bases at k is cut into blocks
+    (rows a block, or windows a segment and segments a row for rows longer
+    than a tile; blocks; dynamic shared bytes) and what the built kernel
+    uses (static shared bytes, registers and local bytes a thread, blocks
+    an SM).  Asks the kernel on the current GPU."""
+    out = (ctypes.c_longlong * len(PLAN_FIELDS))()
+    rc = _load().hash_append_plan(rows, L, k, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"hash_append_plan failed: CUDA error {rc}")
+    return dict(zip(PLAN_FIELDS, out))
 
 
 def _geometry(buf, n_buf, nelts, lengths, k, key_bits, packed, nmask,

@@ -3,7 +3,8 @@
 Counterpart of ``sh_assembly_tpu/parallel/sharded.py``.  Shard i of an
 n-shard mesh owns the keys whose top log2(n) bits equal i, so the shards'
 sorted stores concatenated in shard order are the globally sorted store.
-Every shard hashes its own rows of a read batch and owns a key range:
+Every shard hashes its own rows of a read batch (kernel K5, one launch a
+shard for a step or for a scan's whole stack) and owns a key range:
 
   step:   hash local rows -> all_gather keys -> keep the keys this shard
           owns -> local append (merge first when the block would not fit)
@@ -34,7 +35,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops import bits, nthash, spectrum as sp
+from ..ops import bits, hash_append_cuda, spectrum as sp
 from . import collectives
 
 
@@ -151,10 +152,19 @@ class ShardedCounter:
 
     # -- per-shard pieces ---------------------------------------------------
     def _keys(self, codes: torch.Tensor, lengths: torch.Tensor):
-        """Masked canonical keys of a row block, flat, -1 where invalid."""
-        keys, valid = nthash.windowed_canonical(codes, lengths, self.k)
-        return torch.where(valid, nthash.mask_keys(keys, self.key_bits),
-                           -1).reshape(-1)
+        """Masked canonical keys of a row block [B, L] or a stack [S, B, L]
+        (lengths [B] or [S, B]), flat in row then window order, -1 where
+        invalid: one launch of K5 into a scratch buffer on CUDA tensors,
+        its plain version on CPU tensors."""
+        dev = codes.device
+        W = max(codes.shape[-1] - self.k + 1, 0)
+        keys = torch.empty(lengths.numel() * W, dtype=torch.int64,
+                           device=dev)
+        hash_append_cuda.hash_append(
+            keys, 0, torch.zeros((), dtype=torch.int64, device=dev),
+            lengths.to(torch.int32).contiguous(), self.k, self.key_bits,
+            codes=codes.to(torch.uint8).contiguous())
+        return keys
 
     def _owner(self, keys: torch.Tensor) -> torch.Tensor:
         """Owner shard of each key: its top shard_bits; n for the
@@ -200,11 +210,11 @@ class ShardedCounter:
         Q = int(np.ceil(W / n * quota_slack)) if n > 1 else W
         return n * Q if n > 1 else Q
 
-    def _route_rows(self, codes, lengths, Q: int):
+    def _route_rows(self, keys, Q: int):
         """A shard's sending side of one scan step: its keys sorted and cut
         into per-owner quota rows [n, Q] -> (rows, dropped)."""
         n = self.n_shards
-        srt = bits.usort(self._keys(codes, lengths))
+        srt = bits.usort(keys)
         bounds = torch.searchsorted(
             self._owner(srt), torch.arange(n + 1, device=srt.device))
         return quota_rows(srt, bounds, Q, -1)
@@ -221,19 +231,23 @@ class ShardedCounter:
         Q = self.routed_per_step(Bl, L, quota_slack) // n
         dropped = [torch.zeros((), dtype=torch.int64, device=self.device)
                    for _ in codes]
+        # every shard's whole stack hashed at once; step s routes its slice
+        keys = [self._keys(c, ln) for c, ln in zip(codes, lengths)]
+        per_step = Bl * max(L - self.k + 1, 0)
         for s in range(S):
+            step = [kk[s * per_step:(s + 1) * per_step] for kk in keys]
             if n > 1:
                 sends = []
-                for i, (c, ln) in enumerate(zip(codes, lengths)):
-                    rows, d = self._route_rows(c[s], ln[s], Q)
+                for i, ks in enumerate(step):
+                    rows, d = self._route_rows(ks, Q)
                     sends.append(rows)
                     dropped[i] += d
                 got = self.mesh.all_to_all(sends)
                 del sends
             else:
-                got = [self._keys(codes[0][s], lengths[0][s])]
+                got = step
             specs = [sp.insert(spec, g) for spec, g in zip(specs, got)]
-            del got
+            del got, step
         return specs, [int(d) for d in dropped]
 
     def merge_sweep(self, specs, rounds: int, threshold: int):

@@ -260,25 +260,39 @@ def _mesh_sizing(k, rounds, threshold):
         end_deNoise=True, fr=0.0)
 
 
-def test_sharded_counter_cuda_matches_cpu(gpu, tmp_path):
+def test_sharded_counter_cuda_matches_cpu(gpu, tmp_path, monkeypatch):
     """count_sharded over 4 shards, deNoise sweeps mid-stream: the same
-    keys, counts and stats on the card (through K1) as on the CPU."""
-    from sh_assembly_tpu_torch.parallel import driver
+    keys, counts and stats on the card (through K1 and K5) as on the CPU.
+    K5 launches once a shard a scan call (each shard hashes its whole
+    stack at once), and never for CPU tensors."""
+    from sh_assembly_tpu_torch.parallel import driver, sharded
 
+    scans = []
+    scan = sharded.ShardedCounter.append_scan
+
+    def counted(self, *a, **kw):
+        scans.append(self.n_shards)
+        return scan(self, *a, **kw)
+
+    monkeypatch.setattr(sharded.ShardedCounter, "append_scan", counted)
     files = _mesh_reads(tmp_path)
     bc = cfg.BatchConfig(reads_per_batch=512, max_read_len=104)
     out = {}
     for dev in ("cpu", gpu):
-        before = merge_cuda.LAUNCHES
+        before = (merge_cuda.LAUNCHES, hash_append_cuda.LAUNCHES)
+        scans.clear()
         _, _, keys, counts, stats = driver.count_sharded(
             files, _mesh_sizing(31, 2, 20_000), n_mesh=4, batch_cfg=bc,
             super_batch=2, device=dev)
-        out[str(dev)] = (keys, counts, stats, merge_cuda.LAUNCHES - before)
-    (kc, cc, sc_, lc), (kg, cg, sg, lg) = out["cpu"], out[str(gpu)]
+        out[str(dev)] = (keys, counts, stats, merge_cuda.LAUNCHES - before[0],
+                         hash_append_cuda.LAUNCHES - before[1], sum(scans))
+    (kc, cc, sc_, lc, hc, _), (kg, cg, sg, lg, hg, n_hash) = \
+        out["cpu"], out[str(gpu)]
     np.testing.assert_array_equal(kc, kg)
     np.testing.assert_array_equal(cc, cg)
     assert sc_ == sg and sg["sweeps"] == 3 and sg["merges"] > 3
     assert lc == 0 and lg >= 4 * (sg["merges"] + sg["sweeps"])
+    assert hc == 0 and hg == n_hash > 4
 
 
 def test_sharded_contiger_cuda_matches_cpu(gpu, tmp_path):
@@ -351,6 +365,29 @@ def test_k5_matches_plain(gpu):
         assert hash_append_cuda.LAUNCHES == before + 1, case[0]
         n += 1
     assert n > 20
+
+
+def test_k5_redesign_edges_match_plain(gpu):
+    """The edges of K5's tiling, bitwise against the plain version: rows
+    of 64, 65 and 160 bases, k = 1 and 63 on rows of 63, rows of 20,000
+    bases in segments with Ns on the seams and rows of length 0, k - 1
+    and one window past a seam.  A stack of 160 bp rows takes shared
+    memory above the 48 KB default; a long row is cut into segments."""
+    names = []
+    for case in chip_smoke.k5_edge_cases(gpu):
+        before = hash_append_cuda.LAUNCHES
+        chip_smoke.k5_compare(*case)
+        assert hash_append_cuda.LAUNCHES == before + 1, case[0]
+        names.append(case[0])
+    for want in ("L64_packed", "L65_codes", "L160_packed", "k1_L63_codes",
+                 "k63_L63_codes", "long20000_k47_packed",
+                 "long20000_k63_codes"):
+        assert want in names
+    hot = hash_append_cuda.plan(8 * 8192, 160, 47)
+    assert hot["dynamic_smem"] > 48 * 1024 and hot["blocks_per_sm"] >= 2
+    assert hot["segments_per_row"] == 1 and hot["local_bytes"] == 0
+    long = hash_append_cuda.plan(4, chip_smoke.K5_LONG_ROW, 63)
+    assert long["rows_per_block"] == 1 and long["segments_per_row"] >= 4
 
 
 def test_k5_refuses_what_the_kernel_does_not_take(gpu):
