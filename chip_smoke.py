@@ -8,11 +8,12 @@ exits non-zero without printing a result:
 
   0. device: nvidia-smi name and power limit, torch/CUDA versions; no GPU
      is an error.
-  1. build: compiles kernels K1-K5 (csrc/merge_dedup.cu, count_join.cu,
-     merge128.cu, block_sort.cu, hash_append.cu) from the checkout, one
-     nvcc each, in parallel; prints K5's tiles at its two real shapes and
-     for rows of 20,000 bases (rows or segments a block, shared memory,
-     registers, spills, blocks an SM).
+  1. build: compiles kernels K1-K6 (csrc/merge_dedup.cu, count_join.cu,
+     merge128.cu, block_sort.cu, hash_append.cu, stage_windows.cu; the last
+     two include csrc/tile_scan.cuh) from the checkout, one nvcc each, in
+     parallel; prints K5's and K6's tiles at their real shapes and for rows
+     of 20,000 bases (rows or segments a block, shared memory, registers,
+     spills, blocks an SM).
   2. K1 against its plain PyTorch twin on the card, bitwise: the merge
      cases of the JAX package's kernel tests, the maximum key, counts at
      the cap, empty inputs, runs spanning many tiles, an overflowing
@@ -58,9 +59,10 @@ exits non-zero without printing a result:
   7. main path at real size: the pipeline CLI on a 12 Mbp genome (30x of
      150 bp reads); prints the phase breakdown, peak device memory, node,
      unitig and contig counts and N50; the contigs must total within 10%
-     of the genome, every kernel of the path (K1, K2, K3, K5) must launch,
-     K5 by the stack (fewer launches and append calls than batches), and
-     the native contraction library must load.
+     of the genome, every kernel of the path (K1, K2, K3, K5, K6) must
+     launch, K5 by the stack (fewer launches and append calls than
+     batches), K6 once a ``_stage_super`` call with no call of its plain
+     chain, and the native contraction library must load.
 
   8. K4 (window sort) against its plain PyTorch version on the card,
      bitwise: windows of 2^7 to 2^19 values (several windows in a block,
@@ -111,7 +113,7 @@ exits non-zero without printing a result:
      counts phase 3's reads and runs (b)'s steps, bitwise as well.  Each
      process's wall, phases, peak memory and kernel launches are printed;
      11a requires K5 launches in its processes and prints count:mesh scan
-     beside them.
+     beside them, 11b K2, K3 and K6 launches.
 
  12. the profiling entry points of the counting hot path and the Contiger
      at their defaults: profile.entry (one fused counting step,
@@ -119,14 +121,16 @@ exits non-zero without printing a result:
      K5, the buffer sorts and K1 at 2^28 slots),
      profile.collect (node collection under cProfile, with its device
      share) and profile.stage2 (graph probes and contraction of 2^24
-     nodes against a 2^28-slot spectrum), each printing what it measured.
+     nodes against a 2^28-slot spectrum), each printing what it measured
+     and its kernel launches; profile.collect must launch K6.
  13. the bench (``python -m sh_assembly_tpu_torch.bench``) at its default
      shapes with SH_BENCH_FULL=1, in this process after phase 12 (the
      kernels are built): it must exit 0 with the primary JSON line last
      (at least 2 merges in its timed window) and a warm end-to-end line
      before it, K1 bitwise equal to its plain twin, no section skipped
-     for the deadline; prints its JSON and ``#`` lines, the loaded-counting
-     windows and the K1-K3 and K5 launches of the whole run.
+     for the deadline, K6 launched (its stage-2 collect and staging rate);
+     prints its JSON and ``#`` lines, the loaded-counting windows and the
+     kernel launches of the whole run.
  14. K5 (hash + append) against its plain PyTorch version on the card,
      bitwise, words around the written range included: the cases of the
      CPU test (tests/test_torch_append_scan.py: k = 21, 47, 63, Ns, rows
@@ -143,6 +147,18 @@ exits non-zero without printing a result:
      launches queued behind a spin kernel, timed back to back by CUDA
      events) and a wrapper call's (CUDA events around one call, the
      host's launch path included).
+ 15. K6 (collect staging) against its plain PyTorch version on the card,
+     bitwise, entries around the written range included: every k of the
+     CPU test (tests/test_torch_stage.py: 21, 31, 32, 33, 47, 63) on rows
+     of 72 and 160 with Ns, pad, empty and short rows and seed columns in
+     and out of range, under both key rules at odd offsets; its tiling's
+     edges (k6_edge_cases): k = 1 and 63 on rows of 64, rows of 8 bases,
+     2000 rows of 152, rows of nothing but empty or short rows, rows of
+     20,000 bases in segments with Ns and seed columns on the seams; then
+     its two real shapes, phase 7's stack (8 x 8192 reads of 150 bp in
+     rows of 152, k = 47, key_bits 34) and the bench's stage-2 stack (rows
+     of 160, key_bits 33), timed as phase 14 times K5, beside the bound,
+     the plain chain and a fill of the four outputs.
 
 ``python3 chip_smoke.py --nccl-processes N`` runs phases 0, 1 and 11a
 alone at N processes x 1 shard over NCCL, a card each (N cards).
@@ -150,17 +166,18 @@ alone at N processes x 1 shard over NCCL, a card each (N cards).
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels, and the one before that repeats phase 0's card name and power
 limit.  The kernels line gives launches on the path that runs each (phase
-7 for K1-K3 and K5, phase 8's profiling entry point for K4, which the main
-path never launches), launches on the mesh path (phase 10c), launches summed over
-the processes of the multi-process path (mp_launches: 11a for K1 and K5,
-11b for K2 and K3), launches in the bench (bench_launches, phase 13), times
-(K5's at profile.hot's shape, genome_* at phase 7's; K5's ms is its
-device time, wrapper_ms a wrapper call's), and each
+7 for K1-K3, K5 and K6, phase 8's profiling entry point for K4, which the
+main path never launches), launches on the mesh path (phase 10c), launches
+summed over the processes of the multi-process path (mp_launches: 11a for
+K1 and K5, 11b for K2, K3 and K6), launches in the bench (bench_launches,
+phase 13), times (K5's at profile.hot's shape, genome_* at phase 7's; K6's
+at phase 7's, stage2_* at the bench's; K5's and K6's ms is device time,
+wrapper_ms a wrapper call's), and each
 kernel's bound, the least time the card could
 take, computed from this run's shapes and results: the larger of the
 bytes moved (each input read once, the live result written once) over
 HBM_BYTES_PER_S and the key comparisons (K5: the 32-bit operations of a
-rolling hash) over OPS_PER_S; K2's entry also
+rolling hash; K6: those and two rolled 128-bit words) over OPS_PER_S; K2's entry also
 has its time at the sparse shape (sparse_ms) beside torch.searchsorted's
 there (sparse_library_ms), K3's its times at the small shape (small_ms)
 and against an empty store (empty_ms, empty_bound_ms).  Work files go to
@@ -797,6 +814,131 @@ def k5_real(device, read_len: int, S: int = 8, B: int = 8192,
               (packed, nmask, lengths)), Lp)
 
 
+# K6's geometries: every k the CPU test takes (both word layouts, 2k at,
+# below and above 64) on rows of 72 and 160, key_bits below, at and above
+# one 32-bit plane
+K6_GEOMETRIES = [(k, L, (22, 32, 40)[(i + j) % 3])
+                 for i, k in enumerate((21, 31, 32, 33, 47, 63))
+                 for j, L in enumerate((72, 160))]
+
+
+def k6_stack(seed: int, k: int, L: int, R: int = 48):
+    """u8 base codes [R, L], int32 lengths and seed columns [R] from a numpy
+    seed: Ns at 2 %, pad (code 5) behind every length, rows of length 0,
+    k - 1, k and L, and seed columns of -1, the read's middle window, 0,
+    the last window, one past it and far out of range."""
+    rng = np.random.default_rng(seed)
+    W = L - k + 1
+    codes = rng.integers(0, 4, size=(R, L)).astype(np.uint8)
+    codes[rng.random((R, L)) < 0.02] = 4
+    lengths = rng.integers(k, L + 1, size=R).astype(np.int32)
+    lengths[:4] = (0, k - 1, k, L)
+    codes[np.arange(L)[None, :] >= lengths[:, None]] = 5
+    mid = np.maximum(lengths - k, 0) // 2
+    choice = rng.integers(0, 6, size=R)
+    seed_cols = np.select(
+        [choice == 0, choice == 1, choice == 2, choice == 3, choice == 4],
+        [np.full(R, -1), mid, np.zeros(R), np.full(R, W - 1), np.full(R, W)],
+        np.full(R, 1 << 20)).astype(np.int32)
+    seed_cols[4:10] = mid[4:10]  # some seeds inside valid rows for sure
+    return codes, lengths, seed_cols
+
+
+def _k6_case(device, name, codes, lengths, seed_cols, k, key_bits, n, keys):
+    import torch
+
+    from sh_assembly_tpu_torch.ops import packio
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    packed, nmask = packio.pack_np(codes)
+    return (name, t(packed), t(nmask), t(lengths.astype(np.int32)),
+            t(seed_cols.astype(np.int32)), k, key_bits, n, keys)
+
+
+def k6_cases(device):
+    """(name, packed, nmask, lengths, seed_cols, k, key_bits, n, keys) tuples
+    for K6, tensors on device: K6_GEOMETRIES at odd offsets under both key
+    rules, then k6_edge_cases."""
+    for j, (k, L, kb) in enumerate(K6_GEOMETRIES):
+        codes, lengths, seed_cols = k6_stack(300 + k + L, k, L)
+        keys = ("ok", "valid")[j % 2]
+        yield _k6_case(device, f"k{k}_L{L}_kb{kb}_{keys}", codes, lengths,
+                       seed_cols, k, kb, 37 + j, keys)
+    yield from k6_edge_cases(device)
+
+
+def k6_edge_cases(device):
+    """k6_cases' tuples at the edges of K6's tiling: k = 1 and 63 on rows of
+    64 (one and two windows a row), rows of 8 bases at k = 8 (256 rows a
+    block), 2000 rows of 152 (many blocks, a partial last one), rows of
+    nothing but empty or short rows, and rows of K5_LONG_ROW bases, which
+    the kernel cuts into segments (``stage_cuda.plan``): Ns on both sides of
+    every seam and of every segment's overlap, seed columns on and beside
+    the seams, and rows of length 0, k - 1, ending one base past a seam's
+    overlap, and full."""
+    from sh_assembly_tpu_torch.ops import stage_cuda as sw_
+
+    for name, seed, k, L, R in (("k1_L64", 21, 1, 64, 40),
+                                ("k63_L64", 22, 63, 64, 40),
+                                ("k8_L8", 23, 8, 8, 600),
+                                ("rows2000_L152", 24, 47, 152, 2000)):
+        codes, lengths, seed_cols = k6_stack(seed, k, L, R)
+        for keys in ("ok", "valid"):
+            yield _k6_case(device, f"{name}_{keys}", codes, lengths,
+                           seed_cols, k, 36, 5, keys)
+    codes, lengths, seed_cols = k6_stack(25, 47, 64, 16)
+    for fill, name in ((0, "all_empty"), (46, "all_short")):
+        yield _k6_case(device, name, codes, np.full_like(lengths, fill),
+                       seed_cols, 47, 36, 0, "ok")
+    for k in (47, 63):
+        L = K5_LONG_ROW
+        p = sw_.plan(5, L, k)
+        sw = p["segment_windows"]
+        if p["segments_per_row"] < 2:
+            raise AssertionError(f"rows of {L} bases fit one tile: {p}")
+        codes, _, _ = k6_stack(26 + k, k, L, 5)
+        lengths = np.array([L, 0, k - 1, sw + k, L - 3], np.int32)
+        codes[np.arange(L)[None, :] >= lengths[:, None]] = 5
+        codes[np.arange(L)[None, :] < lengths[:, None]] = \
+            codes[np.arange(L)[None, :] < lengths[:, None]] % 4  # N-free
+        for seam in range(sw, L - k + 1, sw):
+            for j in (seam - 1, seam, seam + k - 2, seam + k - 1):
+                codes[[0, 4], j] = 4
+        seed_cols = np.array([sw, sw - 1, 3, sw, 2 * sw + 1], np.int32)
+        for keys in ("ok", "valid"):
+            yield _k6_case(device, f"long{L}_k{k}_{keys}", codes, lengths,
+                           seed_cols, k, 34, 3, keys)
+
+
+def k6_compare(name, packed, nmask, lengths, seed_cols, k, key_bits, n,
+               keys) -> None:
+    """One k6_cases case through K6 and its plain version into two sets of
+    buffers poisoned around the written range: all four tensors must agree
+    word for word, the poison included."""
+    import torch
+
+    from sh_assembly_tpu_torch.ops import stage_cuda
+
+    L = 4 * packed.shape[-1]
+    size = n + lengths.numel() * max(L - k + 1, 0) + 5
+    dev = lengths.device
+    outs = []
+    for fn in (stage_cuda.stage_windows_cuda, stage_cuda.stage_windows_plain):
+        words = [torch.full((size,), 0x5A5A5A5A5A5A5A5A, dtype=torch.int64,
+                            device=dev) for _ in range(3)]
+        seed = torch.full((size,), 0xA5, dtype=torch.uint8, device=dev)
+        m = fn(*words, seed, n, packed, nmask, lengths, seed_cols, k,
+               key_bits, keys)
+        outs.append((m, words + [seed]))
+    torch.cuda.synchronize()
+    (mk, got), (mp, want) = outs
+    for f, a, b in zip(("hi", "lo", "key", "seed"), got, want):
+        if mk != mp or not torch.equal(a, b):
+            raise AssertionError(
+                f"K6 != plain version on {name}: {f} differs in "
+                f"{int((a != b).sum())} entries (wrote {mk} and {mp})")
+
+
 def _merged_spectrum(store, n, key_bits):
     """A merged Spectrum around a packed store with n live entries."""
     import torch
@@ -879,27 +1021,28 @@ def phase1_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from sh_assembly_tpu_torch.ops import _build, blocksort_cuda, \
-        hash_append_cuda, join_cuda, merge128_cuda, merge_cuda
+        hash_append_cuda, join_cuda, merge128_cuda, merge_cuda, stage_cuda
 
     print("== phase 1: build", flush=True)
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)  # build from source
     t0 = time.time()
     # one nvcc per source, all started together
     mods = (merge_cuda, join_cuda, merge128_cuda, blocksort_cuda,
-            hash_append_cuda)
+            hash_append_cuda, stage_cuda)
     with ThreadPoolExecutor(len(mods)) as ex:
         for f in [ex.submit(m.build) for m in mods]:
             f.result()
     for name in ("merge_dedup", "count_join", "merge128", "block_sort",
-                 "hash_append"):
+                 "hash_append", "stage_windows"):
         print(f"built {name} (sm_90a) -> {_build.lib_path(name)}")
     print(f"  all kernels built in {time.time() - t0:.2f} s")
-    # K5's tiles: its two real stacks (8 x 8192 rows) and a long row
-    for what, rows, L in (("profile.hot's stack", 8 * 8192, 160),
+    # K5's and K6's tiles: their real stacks (8 x 8192 rows) and a long row
+    for what, rows, L in (("profile.hot's and stage 2's stack", 8 * 8192,
+                           160),
                           ("phase 7's stack", 8 * 8192, 152),
                           (f"rows of {K5_LONG_ROW}", 4, K5_LONG_ROW)):
-        print(f"  K5 plan, {what} at k=47: "
-              f"{hash_append_cuda.plan(rows, L, 47)}")
+        for kn, mod in (("K5", hash_append_cuda), ("K6", stage_cuda)):
+            print(f"  {kn} plan, {what} at k=47: {mod.plan(rows, L, 47)}")
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -1366,20 +1509,22 @@ def _n50(lens: np.ndarray) -> int:
 
 def _reset_launches():
     from sh_assembly_tpu_torch.ops import hash_append_cuda, join_cuda, \
-        merge128_cuda, merge_cuda
+        merge128_cuda, merge_cuda, stage_cuda
 
-    for m in (merge_cuda, join_cuda, merge128_cuda, hash_append_cuda):
+    for m in (merge_cuda, join_cuda, merge128_cuda, hash_append_cuda,
+              stage_cuda):
         m.LAUNCHES = 0
 
 
 def _launches():
     from sh_assembly_tpu_torch.ops import hash_append_cuda, join_cuda, \
-        merge128_cuda, merge_cuda
+        merge128_cuda, merge_cuda, stage_cuda
 
     return {"merge_dedup": merge_cuda.LAUNCHES,
             "count_join": join_cuda.LAUNCHES,
             "merge128": merge128_cuda.LAUNCHES,
-            "hash_append": hash_append_cuda.LAUNCHES}
+            "hash_append": hash_append_cuda.LAUNCHES,
+            "stage_windows": stage_cuda.LAUNCHES}
 
 
 # the bench's end-to-end shape (bench.py): a 1 Mbp genome, 300 k reads of
@@ -1456,6 +1601,7 @@ def phase7_genome():
 
     from sh_assembly_tpu_torch.io import native
     from sh_assembly_tpu_torch.models import contiger
+    from sh_assembly_tpu_torch.ops import stage_cuda
     from sh_assembly_tpu_torch.utils import profiling
 
     print("== phase 7: reads -> contigs on a 12 Mbp genome", flush=True)
@@ -1474,6 +1620,14 @@ def phase7_genome():
     torch_contract = contiger.contract_paths
     contiger.contract_paths = lambda cn: fallback.append(1) or \
         torch_contract(cn)
+    # and calls of the collect staging, and of its plain chain, which the
+    # card must never run on this path
+    supers, plain = [], []
+    stage_super, stage_plain = contiger._stage_super, \
+        stage_cuda.stage_windows_plain
+    contiger._stage_super = lambda *a: supers.append(1) or stage_super(*a)
+    stage_cuda.stage_windows_plain = lambda *a, **kw: plain.append(1) or \
+        stage_plain(*a, **kw)
     _reset_launches()
     try:
         _, logtxt, wall = _run_cli(GENOME_FLAGS + [
@@ -1483,6 +1637,8 @@ def phase7_genome():
             cli="pipeline")
     finally:
         contiger.contract_paths = torch_contract
+        contiger._stage_super = stage_super
+        stage_cuda.stage_windows_plain = stage_plain
     launches = _launches()
     peak = torch.cuda.max_memory_allocated()
     lib = native._load()
@@ -1508,6 +1664,12 @@ def phase7_genome():
           f"{peak / 2**30:.2f} GiB; kernel launches {launches}")
     if not all(launches.values()):
         raise AssertionError(f"a kernel never launched: {launches}")
+    print(f"  collect staging: {len(supers)} _stage_super calls, "
+          f"{launches['stage_windows']} K6 launches, {len(plain)} calls of "
+          f"the plain chain")
+    if launches["stage_windows"] != len(supers) or plain:
+        raise AssertionError("collect_nodes did not stage through one K6 "
+                             "launch a _stage_super call")
     stats = profiling.GLOBAL.stats
     appends, batches = (stats[p].calls for p in (
         "count:device append", "count:host read/pack"))
@@ -2277,9 +2439,10 @@ def phase11_mesh():
     res = mp_spawn(2, 2, "gloo", [("contig", contig_kw)], "11b")["contig"]
     parts = _check_parts(res, ref, "11b 2x2 gloo")
     got = _mp_report(res, "11b")
-    if not (got["count_join"] and got["merge128"]):
-        raise AssertionError(f"11b: K2 or K3 never launched: {got}")
-    launches.update(count_join=got["count_join"], merge128=got["merge128"])
+    if not (got["count_join"] and got["merge128"] and got["stage_windows"]):
+        raise AssertionError(f"11b: K2, K3 or K6 never launched: {got}")
+    launches.update(count_join=got["count_join"], merge128=got["merge128"],
+                    stage_windows=got["stage_windows"])
     out = os.path.join(d, "mp_unitigs.fa")
     sharded_contiger.finish_parts(parts, bool(res[0]["saw"]),
                                   params).write_fasta(out)
@@ -2290,7 +2453,8 @@ def phase11_mesh():
     print(f"  11b stores and probe parts bitwise equal to the in-process "
           f"mesh's; unitigs.fa finished from them byte-identical to phase "
           f"10a's contiger --mesh 4 ({os.path.getsize(fa)} bytes); K2 "
-          f"{got['count_join']}, K3 {got['merge128']} launches", flush=True)
+          f"{got['count_join']}, K3 {got['merge128']}, K6 "
+          f"{got['stage_windows']} launches", flush=True)
     del parts
 
     # 11c: the NCCL branch, one process of 4 shards on the card
@@ -2392,6 +2556,99 @@ def phase14_k5(device):
     return 0, timing
 
 
+# K6's real shapes: the stacks phase 7's genome hands it (8 x 8192 reads of
+# 150 bp in rows of 152, k = 47, key_bits 34, each read's middle window its
+# seed) and the bench's stage-2 stack (8 x 8192 rows of 160, key_bits 33, no
+# seeds)
+K6_SHAPES = {"genome": (150, 47, 34, True), "stage2": (160, 47, 33, False)}
+
+
+def _k6_time(device, read_len: int, k: int, key_bits: int,
+             seeded: bool) -> dict:
+    """K6 and its plain version on one real stack, bitwise, timed -> ms
+    (device time a call, launches queued back to back), wrapper_ms (CUDA
+    events around one wrapper call: the host's launch path included),
+    plain_ms, the bound, the windows and the device time of a fill of the
+    four outputs (store_ms)."""
+    import torch
+
+    from sh_assembly_tpu_torch.ops import stage_cuda
+
+    pk, nm, ln, Lp = k5_real(device, read_len)
+    pk, nm, ln = pk.reshape(-1, Lp // 4), nm.reshape(-1, Lp // 8), \
+        ln.reshape(-1)
+    R, W = ln.numel(), Lp - k + 1
+    sc = torch.full((R,), (read_len - k) // 2 if seeded else -1,
+                    dtype=torch.int32, device=device)
+    n = R * W
+    outs = [([torch.empty(n, dtype=torch.int64, device=device)
+              for _ in range(3)] + [torch.empty(n, dtype=torch.uint8,
+                                                device=device)])
+            for _ in range(2)]
+    run = [lambda f=f, o=o: f(*o, 0, pk, nm, ln, sc, k, key_bits)
+           for f, o in ((stage_cuda.stage_windows_cuda, outs[0]),
+                        (stage_cuda.stage_windows_plain, outs[1]))]
+    run[0](), run[1]()
+    torch.cuda.synchronize()
+    for f, a, b in zip(("hi", "lo", "key", "seed"), *outs):
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"K6 != plain version at {read_len} bp: {f} differs in "
+                f"{int((a != b).sum())} of {n} windows")
+    live = int((outs[0][2] != -1).sum())
+    seeds = int(outs[0][3].sum())
+    wrapper_ms, plain_ms = _time_ms(run[0], 20), _time_ms(run[1], 3)
+    ms = _queued_ms(run[0], 20)
+    # what writing the four outputs alone takes on this card
+    store_ms = _queued_ms(lambda: [t.fill_(0) for t in outs[1]], 20)
+    # the outputs written once (three words and a flag a window), the
+    # packed bases, N mask, lengths and seed columns read once; a window
+    # needs at least its rolling hash (16 32-bit operations, as K5) and
+    # two rolled 128-bit words and their compare (16 more)
+    moved = 25 * n + pk.numel() + nm.numel() + 8 * R
+    return dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                library_ms=None, windows=n, live=live, seeds=seeds,
+                moved=moved, store_ms=store_ms, **bound(moved, 32 * n))
+
+
+def phase15_k6(device):
+    """K6 against its plain version, bitwise, on the CPU test's geometries
+    and its tiling's edges, then at its two real shapes, timed.  Returns
+    (err, timing)."""
+    import torch
+
+    from sh_assembly_tpu_torch.ops import stage_cuda
+
+    print("== phase 15: K6 (collect staging) against its plain version",
+          flush=True)
+    n = 0
+    before = stage_cuda.LAUNCHES
+    for case in k6_cases(device):
+        k6_compare(*case)
+        n += 1
+    launches = stage_cuda.LAUNCHES - before
+    print(f"  {n} cases identical, the entries around each range untouched "
+          f"({launches} launches; k = 1, 8, 21, 31, 32, 33, 47, 63, rows of 8 "
+          f"to {K5_LONG_ROW} bases, both key rules, odd offsets, Ns, pad, "
+          f"empty and short rows, seed columns in and out of range, segments "
+          f"with Ns and seeds on their seams)")
+    if launches != n:
+        raise AssertionError(f"{launches} K6 launches for {n} cases")
+    timing = {}
+    for shape, (read_len, k, kb, seeded) in K6_SHAPES.items():
+        t = timing[shape] = _k6_time(device, read_len, k, kb, seeded)
+        print(f"  {shape} shape, 8 x 8192 reads of {read_len} bp, k={k}, "
+              f"key_bits {kb}: identical ({t['windows']} windows, "
+              f"{t['live']} keyed, {t['seeds']} seeds); K6 device "
+              f"{t['ms']:.4f} ms (a wrapper call {t['wrapper_ms']:.4f} ms), "
+              f"plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}, {t['moved'] / 1e6:.2f} MB), a fill of the "
+              f"four outputs {t['store_ms']:.4f} ms of device time",
+              flush=True)
+    torch.cuda.empty_cache()
+    return 0, timing
+
+
 def phase12_profiles():
     """The profiling entry points of the counting hot path and the
     Contiger at their defaults (``profile.{entry,hot,collect,stage2}``)."""
@@ -2400,15 +2657,18 @@ def phase12_profiles():
     print("== phase 12: profile.entry, .hot, .collect and .stage2", flush=True)
     for name, mod in (("entry", entry), ("hot", hot), ("collect", collect),
                       ("stage2", stage2)):
+        _reset_launches()
         rc, _, wall = _run_main(mod.main, [])
         if rc != 0:
             raise AssertionError(f"profile.{name} exited {rc}")
-        print(f"  profile.{name} ({wall:.1f} s): {getattr(mod, 'LAST', {})}",
-              flush=True)
+        print(f"  profile.{name} ({wall:.1f} s): {getattr(mod, 'LAST', {})}; "
+              f"kernel launches {_launches()}", flush=True)
+        if name == "collect" and not _launches()["stage_windows"]:
+            raise AssertionError("profile.collect never launched K6")
 
 
 def phase13_bench():
-    """The bench at its defaults with SH_BENCH_FULL=1 -> its K1-K3
+    """The bench at its defaults with SH_BENCH_FULL=1 -> its kernel
     launches."""
     from sh_assembly_tpu_torch import bench
 
@@ -2442,6 +2702,8 @@ def phase13_bench():
           f"counting windows: {'; '.join(windows)}", flush=True)
     if rc != 0:
         raise AssertionError(f"the bench exited {rc}")
+    if not launches["stage_windows"]:
+        raise AssertionError("the bench never launched K6 (collect staging)")
     primary = json.loads(lines[-1]) if lines else {}
     if primary.get("metric") != bench.PRIMARY:
         raise AssertionError("the bench's last line is not its primary JSON")
@@ -2484,6 +2746,7 @@ def main() -> int:
         phase12_profiles()
         bench = phase13_bench()
         err5, timing5b = phase14_k5(dev)
+        err6, timing6 = phase15_k6(dev)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     loaded = [m for m in sys.modules
@@ -2498,6 +2761,13 @@ def main() -> int:
                                "bound_by", "library_ms")},
         **{f"genome_{k}": gen[k] for k in ("ms", "wrapper_ms", "plain_ms",
                                            "bound_ms")}}
+    # K6: phase 7's stack, the bench's stage-2 stack beside it
+    gen, st2 = timing6["genome"], timing6["stage2"]
+    timing["stage_windows"] = {
+        **{k: gen[k] for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms")},
+        **{f"stage2_{k}": st2[k] for k in ("ms", "wrapper_ms", "plain_ms",
+                                           "bound_ms")}}
     ops = "sh_assembly_tpu/ops/"
     pipeline, prof = "phase 7 (cli.pipeline)", \
         "phase 8 (profile.blocksort.main); the main path: 0"
@@ -2511,7 +2781,10 @@ def main() -> int:
              prof),
             ("hash_append", "hash_append",
              "sh_assembly_tpu/models/counter.py:102 append_scan_packed (an "
-             "XLA-fused lax.scan, not a pl.pallas_call)", err5, pipeline)]
+             "XLA-fused lax.scan, not a pl.pallas_call)", err5, pipeline),
+            ("stage_windows", "stage_windows",
+             "sh_assembly_tpu/models/contiger.py:79 _stage_super (a jax.jit "
+             "program, not a pl.pallas_call)", err6, pipeline)]
     print(smi)  # the card and its power limit again, beside the numbers
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",

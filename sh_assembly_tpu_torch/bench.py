@@ -576,7 +576,8 @@ def _cold_kind(device) -> str:
     """What the first run pays besides its own work."""
     if device.type != "cuda":
         return "the first run in this process (the CPU launches no kernel)"
-    names = ("merge_dedup", "count_join", "merge128")
+    names = ("merge_dedup", "count_join", "merge128", "hash_append",
+             "stage_windows")
     if all(n in _build._LIBS for n in names):
         return "the first launches only (every kernel already loaded)"
     if not any(os.path.exists(_build.lib_path(n)) for n in names):

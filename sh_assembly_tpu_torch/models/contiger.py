@@ -43,7 +43,7 @@ import torch
 from .. import config as cfg
 from ..io import fastq
 from ..ops import bits, kmerpack as kp, kmerpack_np as kpn, merge128_cuda, \
-    nthash, packio, spectrum as sp
+    nthash, packio, spectrum as sp, stage_cuda
 from ..utils import dna, profiling
 from ..utils.logging import log
 
@@ -90,38 +90,17 @@ def _stage_super(pend: _Pending, packed, nmask, lengths, seed_cols, k: int,
 
     Every valid N-free window's canonical packed k-mer and hash key are
     appended raw at offset ``pend.n`` (invalid lanes as sentinels), written
-    in place.  Dedup, the count filter and the store fold wait for
-    _flush_pending.  seed_cols[r] marks the column of the source read's
-    middle k-mer (-1 = none): those windows carry a seed flag.
+    in place by ``stage_cuda.stage_windows`` (kernel K6 on CUDA tensors).
+    Dedup, the count filter and the store fold wait for _flush_pending.
+    seed_cols[r] marks the column of the source read's middle k-mer (-1 =
+    none): those windows carry a seed flag.
     """
-    codes = packio.unpack(packed, nmask, L)
-    SB = codes.shape[0]
-    W = L - k + 1
-    dev = codes.device
-    keys, valid = nthash.windowed_canonical(codes, lengths, k)
-    keys = nthash.mask_keys(keys, key_bits)
-
-    # windows containing any non-ACGT base are not graph nodes
-    cbad = torch.cumsum((codes >= 4).int(), dim=1)
-    nfree = (cbad[:, k - 1:] - torch.cat(
-        [torch.zeros((SB, 1), dtype=cbad.dtype, device=dev),
-         cbad[:, :W - 1]], dim=1)) == 0
-    ok = valid & nfree
-    is_seed = ok & (torch.arange(W, device=dev)[None, :]
-                    == seed_cols.long()[:, None])
-
-    hi, lo = kp.pack_windows(codes, k)
-    rhi, rlo = kp.revcomp_packed(hi, lo, k)
-    chi, clo, _ = kp.canonicalize(hi, lo, rhi, rlo)
-
-    flat = ok.reshape(-1)
-    n = flat.numel()
-    s = slice(pend.n, pend.n + n)
-    pend.hi[s] = torch.where(flat, chi.reshape(-1), SENT)
-    pend.lo[s] = torch.where(flat, clo.reshape(-1), SENT)
-    pend.key[s] = torch.where(flat, keys.reshape(-1), SENT)
-    pend.seed[s] = is_seed.reshape(-1).to(torch.uint8)
-    pend.n += n
+    if packed.shape[-1] * 4 != L:
+        raise ValueError(f"packed rows of {packed.shape[-1] * 4} bases, "
+                         f"L = {L}")
+    pend.n += stage_cuda.stage_windows(
+        pend.hi, pend.lo, pend.key, pend.seed, pend.n, packed, nmask,
+        lengths, seed_cols, k, key_bits)
 
 
 def _flush_pending(spec: sp.Spectrum, store: _NodeStore, pend: _Pending,

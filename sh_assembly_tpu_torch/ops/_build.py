@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface.  ``load(name)`` compiles
 it with nvcc for Hopper (sm_90a) into ``csrc/build/`` (ignored by git),
-under a file name that carries the source's hash so an edited source is
-rebuilt, and returns the ``ctypes.CDLL``.  Building needs nvcc (found on
-PATH, under $CUDA_HOME, or at /usr/local/cuda) and happens only when a
-kernel is first launched, never at import.
+under a file name that carries the hash of the source and of the headers
+beside it (``*.cuh``), so an edited source or header is rebuilt, and
+returns the ``ctypes.CDLL``.  Building needs nvcc (found on PATH, under
+$CUDA_HOME, or at /usr/local/cuda) and happens only when a kernel is first
+launched, never at import.
 """
 
 from __future__ import annotations
@@ -39,9 +40,14 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where csrc/<name>.cu builds to: the name carries a hash of the
+    source, of every header in csrc/ (sources include them) and of the
+    flags."""
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -42,8 +42,8 @@ import torch
 from .. import config as cfg
 from ..io import fastq
 from ..models import contiger
-from ..ops import bits, kmerpack as kp, merge128_cuda, nthash, packio, \
-    spectrum as sp
+from ..ops import bits, kmerpack as kp, merge128_cuda, packio, \
+    spectrum as sp, stage_cuda
 from ..utils import profiling
 from ..utils.logging import log
 from .sharded import ShardedCounter, quota_rows, row_width, \
@@ -251,36 +251,33 @@ class ShardedContiger:
         """One batch (per-shard row blocks of the packed transport format)
         -> (n_live per shard, dropped).  Every valid N-free window whose
         key counts at least abundance_min is a node; a window at its read's
-        seed column is a seed."""
+        seed column is a seed.
+
+        Each shard's rows are staged by ``stage_cuda.stage_windows`` (kernel
+        K6 on CUDA tensors) under the mesh key rule: the key of every valid
+        window, N-containing ones included, goes to the count round trip,
+        and the canonical (hi, lo) and seed flag of every valid N-free one
+        wait for its count."""
         k, kb = self.k, self.key_bits
         W = Lp - k + 1
         Qc = self._quota(packed[0].shape[0] * W)
-        keys, rows = [], []
-        for p, m, ln in zip(packed, nmask, lengths):
-            codes = packio.unpack(p, m, Lp)
-            kk, valid = nthash.windowed_canonical(codes, ln, k)
-            keys.append(torch.where(valid, nthash.mask_keys(kk, kb),
-                                    SENT).reshape(-1))
-            rows.append((codes, valid))
+        keys, staged = [], []
+        for p, m, ln, sc in zip(packed, nmask, lengths, seed_cols):
+            n = ln.numel() * W
+            hi, lo, key = (torch.empty(n, dtype=torch.int64, device=p.device)
+                           for _ in range(3))
+            seed = torch.empty(n, dtype=torch.uint8, device=p.device)
+            stage_cuda.stage_windows(hi, lo, key, seed, 0, p, m, ln, sc, k,
+                                     kb, keys="valid")
+            keys.append(key)
+            staged.append((hi, lo, seed))
         counts, d0 = self._dist_counts(specs, keys, Qc)
         cands = []
-        for (codes, valid), cnt, sc in zip(rows, counts, seed_cols):
-            SB = codes.shape[0]
-            cbad = torch.cumsum((codes >= 4).int(), dim=1)
-            nfree = (cbad[:, k - 1:] - torch.cat(
-                [torch.zeros((SB, 1), dtype=cbad.dtype, device=codes.device),
-                 cbad[:, :W - 1]], dim=1)) == 0
-            solid = valid & nfree & (cnt.reshape(SB, W) >= self.abundance_min)
-            is_seed = solid & (torch.arange(W, device=codes.device)[None, :]
-                               == sc.long()[:, None])
-            hi, lo = kp.pack_windows(codes, k)
-            rhi, rlo = kp.revcomp_packed(hi, lo, k)
-            chi, clo, _ = kp.canonicalize(hi, lo, rhi, rlo)
-            at = solid.reshape(-1)
-            cands.append((chi.reshape(-1)[at], clo.reshape(-1)[at],
-                          torch.where(is_seed.reshape(-1)[at], 0, 1)
-                          .to(torch.uint8)))
-        del rows, counts
+        for (hi, lo, seed), cnt in zip(staged, counts):
+            at = ~((hi == SENT) & (lo == SENT)) & \
+                (cnt >= self.abundance_min)
+            cands.append((hi[at], lo[at], 1 - seed[at]))
+        del staged, counts
         n_live, d1, _ = self._route_and_merge(stores, cands, Qc)
         return n_live, d0 + d1
 

@@ -1,6 +1,7 @@
 """Kernels K1 (csrc/merge_dedup.cu), K2 (csrc/count_join.cu), K3
-(csrc/merge128.cu), K4 (csrc/block_sort.cu) and K5 (csrc/hash_append.cu)
-against their plain PyTorch versions on the GPU, bitwise, and the
+(csrc/merge128.cu), K4 (csrc/block_sort.cu), K5 (csrc/hash_append.cu) and
+K6 (csrc/stage_windows.cu) against their plain PyTorch versions on the GPU,
+bitwise, and the
 counting stage, the Contiger, their
 sharded forms (4 shards on the card), the set operations and the traveled
 queries on CUDA against the CPU path.
@@ -21,7 +22,7 @@ from sh_assembly_tpu_torch.io import fastq
 from sh_assembly_tpu_torch.models import counter
 from sh_assembly_tpu_torch.models import contiger
 from sh_assembly_tpu_torch.ops import blocksort_cuda, hash_append_cuda, \
-    join_cuda, merge128_cuda, merge_cuda
+    join_cuda, merge128_cuda, merge_cuda, stage_cuda
 from sh_assembly_tpu_torch.ops import spectrum as sp
 
 pytestmark = pytest.mark.cuda
@@ -309,14 +310,17 @@ def test_sharded_contiger_cuda_matches_cpu(gpu, tmp_path):
     out = {}
     for dev in ("cpu", gpu):
         sc = driver.make_counter(sizing, 4, bc, device=dev)
-        before = (join_cuda.LAUNCHES, merge128_cuda.LAUNCHES)
+        before = (join_cuda.LAUNCHES, merge128_cuda.LAUNCHES,
+                  stage_cuda.LAUNCHES)
         au = driver.contiger_sharded(
             sc, sc.from_host(keys, counts), files,
             cfg.ContigerParams(k=k), batch_cfg=bc)
         out[str(dev)] = (au, (join_cuda.LAUNCHES - before[0],
-                              merge128_cuda.LAUNCHES - before[1]))
+                              merge128_cuda.LAUNCHES - before[1],
+                              stage_cuda.LAUNCHES - before[2]))
     (ac, lc), (ag, lg) = out["cpu"], out[str(gpu)]
-    assert lc == (0, 0) and lg[0] > 0 and lg[1] > 0
+    assert lc == (0, 0, 0) and lg[0] > 0 and lg[1] > 0
+    assert lg[2] > 0 and lg[2] % 4 == 0  # K6: once a shard a batch
     assert ac.n == ag.n > 0
     for f in ("seq_codes", "offsets", "med", "after_ptr", "after_val",
               "before_ptr", "before_val"):
@@ -411,3 +415,82 @@ def test_k5_refuses_what_the_kernel_does_not_take(gpu):
             buf, 0, zero, ln.to(gpu).t().contiguous().t(), 47, 36,
             codes=c.to(gpu).transpose(0, 1).contiguous().transpose(0, 1))
     assert hash_append_cuda.LAUNCHES == before
+
+
+def test_k6_matches_plain(gpu):
+    """K6 against its plain version on the CPU test's geometries under both
+    key rules and on its tiling's edges (rows of 8 to 20,000 bases, the
+    long ones in segments), the entries around each range included."""
+    names = []
+    for case in chip_smoke.k6_cases(gpu):
+        before = stage_cuda.LAUNCHES
+        chip_smoke.k6_compare(*case)
+        assert stage_cuda.LAUNCHES == before + 1, case[0]
+        names.append(case[0])
+    assert len(names) > 20
+    for want in ("k32_L160_kb22_valid", "k63_L64_ok", "k8_L8_valid",
+                 "long20000_k47_ok", "long20000_k63_valid"):
+        assert want in names
+    p = stage_cuda.plan(8 * 8192, 152, 47)
+    assert p["dynamic_smem"] > 48 * 1024 and p["local_bytes"] == 0
+
+
+def test_collect_nodes_cuda_launches_k6_per_stage_super(gpu, monkeypatch):
+    """collect_nodes on the card stages each superstep with one launch of
+    K6 and never the plain chain, and collects the CPU's nodes."""
+    calls = []
+    stage_super = contiger._stage_super
+    monkeypatch.setattr(contiger, "_stage_super",
+                        lambda *a: calls.append(1) or stage_super(*a))
+    rng = np.random.default_rng(6)
+    genome = rng.integers(0, 4, size=5000).astype(np.uint8)
+    b = fastq.Batcher(47, 64, 136)
+    batches = [x for s in rng.integers(0, 4870, size=900)
+               for x in b.add_read(genome[s:s + 130])] + list(b.flush())
+    sizing = cfg.CounterSizing(
+        k=47, qb=14, hb=22, num_true_kmers=0, num_false_kmers=0,
+        n_true_kmers=1, num_deNoise=0, ndistinct_for_deNoise=1 << 62,
+        end_deNoise=False, fr=0.0)
+    bc = cfg.BatchConfig(reads_per_batch=64, max_read_len=136)
+    out = {}
+    for dev in ("cpu", gpu):
+        spec, _ = counter.build_spectrum(
+            iter(batches), sizing, capacity=1 << 16, buf_capacity=1 << 14,
+            batch_cfg=bc, device=dev)
+        calls.clear()
+        before = stage_cuda.LAUNCHES
+        got = contiger.collect_nodes(spec, iter(batches), 47, 22, 2,
+                                     super_batch=3)
+        out[str(dev)] = ([t.cpu() for t in got], len(calls),
+                         stage_cuda.LAUNCHES - before)
+    (nc, sc_, lc), (ng, sg, lg) = out["cpu"], out[str(gpu)]
+    assert lc == 0 and sc_ == sg == lg > 3
+    assert nc[0].numel() > 4000
+    for a, b in zip(nc, ng):
+        assert torch.equal(a, b)
+
+
+def test_k6_refuses_what_the_kernel_does_not_take(gpu):
+    codes, lengths, seed_cols = chip_smoke.k6_stack(3, 31, 72, R=8)
+    case = chip_smoke._k6_case(gpu, "r", codes, lengths, seed_cols, 31, 30,
+                               0, "ok")
+    _, pk, nm, ln, sc = case[:5]
+    n = 8 * 42
+    words = [torch.full((n,), -1, dtype=torch.int64, device=gpu)
+             for _ in range(3)]
+    seed = torch.zeros(n, dtype=torch.uint8, device=gpu)
+    before = stage_cuda.LAUNCHES
+    with pytest.raises(ValueError):  # a CPU input
+        stage_cuda.stage_windows(*words, seed, 0, pk.cpu(), nm, ln, sc, 31,
+                                 30)
+    with pytest.raises(ValueError):  # the CUDA wrapper takes no CPU buffer
+        stage_cuda.stage_windows_cuda(*(w.cpu() for w in words), seed.cpu(),
+                                      0, pk.cpu(), nm.cpu(), ln.cpu(),
+                                      sc.cpu(), 31, 30)
+    with pytest.raises(ValueError):  # past the buffer's end
+        stage_cuda.stage_windows(*words, seed, 1, pk, nm, ln, sc, 31, 30)
+    with pytest.raises(ValueError):  # packed at an odd address
+        odd = torch.zeros(pk.numel() + 1, dtype=torch.uint8, device=gpu)
+        stage_cuda.stage_windows(*words, seed, 0, odd[1:].view(pk.shape), nm,
+                                 ln, sc, 31, 30)
+    assert stage_cuda.LAUNCHES == before
