@@ -8,11 +8,12 @@ exits non-zero without printing a result:
 
   0. device: nvidia-smi name and power limit, torch/CUDA versions; no GPU
      is an error.
-  1. build: compiles kernels K1-K6 (csrc/merge_dedup.cu, count_join.cu,
-     merge128.cu, block_sort.cu, hash_append.cu, stage_windows.cu; the last
-     two include csrc/tile_scan.cuh) from the checkout, one nvcc each, in
-     parallel; prints K5's and K6's tiles at their real shapes and for rows
-     of 20,000 bases (rows or segments a block, shared memory, registers,
+  1. build: compiles kernels K1-K8 (csrc/merge_dedup.cu, count_join.cu,
+     merge128.cu, block_sort.cu, hash_append.cu, stage_windows.cu,
+     node_join.cu, node_probes.cu; hash_append and stage_windows include
+     csrc/tile_scan.cuh) from the checkout, one nvcc each, in parallel;
+     prints K5's and K6's tiles at their real shapes and for rows of
+     20,000 bases (rows or segments a block, shared memory, registers,
      spills, blocks an SM).
   2. K1 against its plain PyTorch twin on the card, bitwise: the merge
      cases of the JAX package's kernel tests, the maximum key, counts at
@@ -59,10 +60,13 @@ exits non-zero without printing a result:
   7. main path at real size: the pipeline CLI on a 12 Mbp genome (30x of
      150 bp reads); prints the phase breakdown, peak device memory, node,
      unitig and contig counts and N50; the contigs must total within 10%
-     of the genome, every kernel of the path (K1, K2, K3, K5, K6) must
+     of the genome, every kernel of the path (K1, K2, K3, K5-K8) must
      launch, K5 by the stack (fewer launches and append calls than
      batches), K6 once a ``_stage_super`` call with no call of its plain
-     chain, and the native contraction library must load.
+     chain, K8 and K7 once a call of the probe programs
+     (``phantom_candidates``, ``build_oriented_graph``) with no call of
+     ``node_probes_plain`` or ``join2_plain``, and the native contraction
+     library must load.
 
   8. K4 (window sort) against its plain PyTorch version on the card,
      bitwise: windows of 2^7 to 2^19 values (several windows in a block,
@@ -159,6 +163,21 @@ exits non-zero without printing a result:
      rows of 152, k = 47, key_bits 34) and the bench's stage-2 stack (rows
      of 160, key_bits 33), timed as phase 14 times K5, beside the bound,
      the plain chain and a fill of the four outputs.
+ 16. K7 (node join) and K8 (node probes) against ``join2_plain`` and
+     ``node_probes_plain`` on the card, bitwise: K7 on a table of one pair
+     repeated, the closure's padded store (sentinel pad rows, sentinel
+     queries), N and Q not powers of two, Q = 0, N = 1, N = 0, tables in
+     random order with repeats and sentinels at k = 21, 31, 32, 33, 47,
+     63, warps holding several groups of equal pairs, and 2^20 rows
+     against 3 x 2^20 queries; K8 at k = 1 and those k in both modes with
+     padding rows; then both at their real shapes, timed as phase 14 times
+     K5 beside the bound and the plain version: profile.stage2's 2^24 node
+     k-mers (K8 graph mode, K7 with their 8 x 2^24 successors) and phase
+     7's padded store (12,232,221 nodes, sentinel pad to 2^24: K8 closure
+     mode, K7 with the 16 x 2^24 probes of closure round 1); and the split
+     of one build_oriented_graph call at 2^24 nodes against
+     profile.stage2's spectrum (probes, node join, count join with its
+     library sort, the rest), its peak, and one closure round.
 
 ``python3 chip_smoke.py --nccl-processes N`` runs phases 0, 1 and 11a
 alone at N processes x 1 shard over NCCL, a card each (N cards).
@@ -166,19 +185,21 @@ alone at N processes x 1 shard over NCCL, a card each (N cards).
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels, and the one before that repeats phase 0's card name and power
 limit.  The kernels line gives launches on the path that runs each (phase
-7 for K1-K3, K5 and K6, phase 8's profiling entry point for K4, which the
+7 for K1-K3 and K5-K8, phase 8's profiling entry point for K4, which the
 main path never launches), launches on the mesh path (phase 10c), launches
 summed over the processes of the multi-process path (mp_launches: 11a for
-K1 and K5, 11b for K2, K3 and K6), launches in the bench (bench_launches,
-phase 13), times (K5's at profile.hot's shape, genome_* at phase 7's; K6's
-at phase 7's, stage2_* at the bench's; K5's and K6's ms is device time,
-wrapper_ms a wrapper call's), and each
+K1 and K5, 11b for K2, K3, K6, K7 and K8), launches in the bench
+(bench_launches, phase 13), times (K5's at profile.hot's shape, genome_*
+at phase 7's; K6's at phase 7's, stage2_* at the bench's; K7's and K8's at
+the graph shape of phase 16, closure_* at its closure shape; K5-K8's ms is
+device time, wrapper_ms a wrapper call's), and each
 kernel's bound, the least time the card could
 take, computed from this run's shapes and results: the larger of the
 bytes moved (each input read once, the live result written once) over
 HBM_BYTES_PER_S and the key comparisons (K5: the 32-bit operations of a
-rolling hash; K6: those and two rolled 128-bit words) over OPS_PER_S; K2's entry also
-has its time at the sparse shape (sparse_ms) beside torch.searchsorted's
+rolling hash; K6: those and two rolled 128-bit words; K7: ten a row and a
+query; K8: four 64-bit ones a base and 24 a probe) over OPS_PER_S; K2's
+entry also has its time at the sparse shape (sparse_ms) beside torch.searchsorted's
 there (sparse_library_ms), K3's its times at the small shape (small_ms)
 and against an empty store (empty_ms, empty_bound_ms).  Work files go to
 build/chip_smoke/ (ignored by git) and are removed at the end.
@@ -939,6 +960,155 @@ def k6_compare(name, packed, nmask, lengths, seed_cols, k, key_bits, n,
                 f"{int((a != b).sum())} entries (wrote {mk} and {mp})")
 
 
+# ---------------------------------------------------------------------------
+# K7 (node join) and K8 (node probes): inputs from numpy seeds
+
+PROBE_KS = (21, 31, 32, 33, 47, 63)  # hi alone up to 32, both words above
+
+
+def _sentinels(n: int):
+    return np.full(n, _SENT64), np.full(n, _SENT64)
+
+
+def k7_tables(large: bool = False, seed: int = 70):
+    """(name, table_hi, table_lo, q_hi, q_lo) numpy uint64 cases of the node
+    join: a table of one pair repeated; the closure's padded store (real
+    rows, then sentinel pad rows); N and Q that are not powers of two with
+    real pairs repeated; Q = 0; N = 1; N = 0; tables in random order with
+    repeated pairs and sentinels scattered among them at every k of
+    PROBE_KS; warps holding several groups of equal pairs; queries present
+    (some many times), absent and sentinel.  ``large`` adds a table of 2^20
+    rows, 30 % sentinel pad, against 3 x 2^20 queries."""
+    rng = np.random.default_rng(seed)
+
+    def queries(thi, tlo, n_in, n_out, n_sent, k=47):
+        pick = rng.integers(0, max(len(thi), 1), n_in if len(thi) else 0)
+        ahi, alo = _rand_kmers(rng, n_out, k)
+        shi, slo = _sentinels(n_sent)
+        qhi = np.concatenate([thi[pick], ahi, shi])
+        qlo = np.concatenate([tlo[pick], alo, slo])
+        o = rng.permutation(len(qhi))
+        return qhi[o], qlo[o]
+
+    def shuffled_table(k, n_distinct, n_repeat, n_sent):
+        hi, lo = _rand_kmers(rng, n_distinct, k)
+        rep = rng.integers(0, n_distinct, n_repeat)
+        shi, slo = _sentinels(n_sent)
+        hi = np.concatenate([hi, hi[rep], shi])
+        lo = np.concatenate([lo, lo[rep], slo])
+        o = rng.permutation(len(hi))
+        return hi[o], lo[o]
+
+    h, l = _rand_kmers(rng, 1, 47)
+    t = np.repeat(h, 1000), np.repeat(l, 1000)
+    yield ("all_duplicates", *t, *queries(*t, 300, 200, 50))
+    h, l = _rand_kmers(rng, 5000, 47)
+    shi, slo = _sentinels(8192 - 5000)
+    t = np.concatenate([h, shi]), np.concatenate([l, slo])
+    yield ("sentinel_pads", *t, *queries(*t, 4000, 3000, 500))
+    t = shuffled_table(47, 11000, 1345, 0)
+    yield ("not_pow2", *t, *queries(*t, 30000, 20000, 4321))
+    t = _rand_kmers(rng, 100, 47)
+    yield ("q0", *t, *queries(*t, 0, 0, 0))
+    t = _rand_kmers(rng, 1, 47)
+    yield ("n1", *t, *queries(*t, 500, 500, 0))
+    t = _rand_kmers(rng, 0, 47)
+    yield ("n0", *t, *queries(*t, 0, 100, 10))
+    for k in PROBE_KS:
+        t = shuffled_table(k, 3000, 500, 300)
+        yield (f"random_order_k{k}", *t, *queries(*t, 4000, 2000, 100, k))
+    h, l = _rand_kmers(rng, 5, 63)
+    t = h[np.arange(4096) % 5], l[np.arange(4096) % 5]
+    yield ("warp_groups", *t, *queries(*t, 3000, 100, 0, 63))
+    if large:
+        h, l = _rand_kmers(rng, 734_003, 47)
+        shi, slo = _sentinels((1 << 20) - len(h))
+        t = np.concatenate([h, shi]), np.concatenate([l, slo])
+        yield ("pads_2^20", *t, *queries(*t, 1 << 21, (1 << 20) - 1000, 1000))
+
+
+def k7_cases(device, large: bool = True):
+    """k7_tables as int64 tensors on ``device``."""
+    from sh_assembly_tpu_torch.ops import bits
+
+    for name, *arrays in k7_tables(large):
+        yield (name, *(bits.from_u64_np(a, device) for a in arrays))
+
+
+def k7_compare(name, thi, tlo, qhi, qlo) -> int:
+    """One k7_cases case through K7 and ``join2_plain`` on the card: the
+    answers must agree bitwise -> the queries found."""
+    import torch
+
+    from sh_assembly_tpu_torch.ops import kmerpack as kp, node_join_cuda
+
+    got = node_join_cuda.node_join(thi, tlo, qhi, qlo)
+    want = kp.join2_plain(thi, tlo, qhi, qlo)
+    torch.cuda.synchronize()
+    if got.dtype != torch.int32 or not torch.equal(got, want):
+        raise AssertionError(
+            f"K7 != join2_plain on {name}: {int((got != want).sum())} of "
+            f"{qhi.numel()} answers differ")
+    return int((got >= 0).sum())
+
+
+def k8_nodes(k: int, n: int, seed: int):
+    """n packed k-mers as numpy uint64 (hi, lo): random ones, poly-A and
+    poly-T, and (-1, -1) padding rows at the start, inside, in a run near
+    the end and last."""
+    rng = np.random.default_rng(seed)
+    hi, lo = _rand_kmers(rng, n, k)
+    if n < 8:
+        return hi, lo
+    ones = (1 << (2 * k)) - 1 << (128 - 2 * k)  # poly-T
+    hi[1], lo[1] = 0, 0
+    hi[2], lo[2] = ones >> 64, ones & ((1 << 64) - 1)
+    for at in (0, 3, n // 2, n - 1):
+        hi[at] = lo[at] = _SENT64
+    hi[n - 60:n - 20] = lo[n - 60:n - 20] = _SENT64
+    return hi, lo
+
+
+def k8_cases(device):
+    """(name, hi, lo, k, key_bits, mode) cases of the node probes: every k
+    of PROBE_KS and k = 1, both modes, key_bits 22, 34 and 63, 5003 nodes
+    with padding rows; one node; no node."""
+    from sh_assembly_tpu_torch.ops import bits
+
+    def case(name, k, n, kb, mode, seed):
+        hi, lo = k8_nodes(k, n, seed)
+        return (name, bits.from_u64_np(hi, device),
+                bits.from_u64_np(lo, device), k, kb, mode)
+
+    for i, k in enumerate((1,) + PROBE_KS):
+        for mode in ("graph", "closure"):
+            kb = (22, 34, 63)[i % 3]
+            yield case(f"k{k}_{mode}_kb{kb}", k, 5003, kb, mode, 80 + k)
+    for mode in ("graph", "closure"):
+        yield case(f"n1_{mode}", 47, 1, 34, mode, 81)
+        yield case(f"n0_{mode}", 47, 0, 34, mode, 82)
+
+
+def k8_compare(name, hi, lo, k, key_bits, mode) -> None:
+    """One k8_cases case through K8 and ``node_probes_plain`` on the card:
+    every output row must agree bitwise."""
+    import torch
+
+    from sh_assembly_tpu_torch.ops import probe_cuda
+
+    got = probe_cuda.node_probes_cuda(hi, lo, k, key_bits, mode)
+    want = probe_cuda.node_probes_plain(hi, lo, k, key_bits, mode)
+    torch.cuda.synchronize()
+    for f, a, b in zip(("keys", "hi", "lo", "flip"), got, want):
+        if (a is None) != (b is None) or (
+                a is not None and (a.dtype != b.dtype or a.shape != b.shape
+                                   or not torch.equal(a, b))):
+            bad = int((a != b).sum()) if a is not None and b is not None \
+                and a.shape == b.shape else "all"
+            raise AssertionError(f"K8 != node_probes_plain on {name}: {f} "
+                                 f"differs in {bad} entries")
+
+
 def _merged_spectrum(store, n, key_bits):
     """A merged Spectrum around a packed store with n live entries."""
     import torch
@@ -1021,19 +1191,20 @@ def phase1_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from sh_assembly_tpu_torch.ops import _build, blocksort_cuda, \
-        hash_append_cuda, join_cuda, merge128_cuda, merge_cuda, stage_cuda
+        hash_append_cuda, join_cuda, merge128_cuda, merge_cuda, \
+        node_join_cuda, probe_cuda, stage_cuda
 
     print("== phase 1: build", flush=True)
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)  # build from source
     t0 = time.time()
     # one nvcc per source, all started together
     mods = (merge_cuda, join_cuda, merge128_cuda, blocksort_cuda,
-            hash_append_cuda, stage_cuda)
+            hash_append_cuda, stage_cuda, node_join_cuda, probe_cuda)
     with ThreadPoolExecutor(len(mods)) as ex:
         for f in [ex.submit(m.build) for m in mods]:
             f.result()
     for name in ("merge_dedup", "count_join", "merge128", "block_sort",
-                 "hash_append", "stage_windows"):
+                 "hash_append", "stage_windows", "node_join", "node_probes"):
         print(f"built {name} (sm_90a) -> {_build.lib_path(name)}")
     print(f"  all kernels built in {time.time() - t0:.2f} s")
     # K5's and K6's tiles: their real stacks (8 x 8192 rows) and a long row
@@ -1507,24 +1678,45 @@ def _n50(lens: np.ndarray) -> int:
     return int(s[np.searchsorted(c, c[-1] / 2)]) if len(s) else 0
 
 
-def _reset_launches():
-    from sh_assembly_tpu_torch.ops import hash_append_cuda, join_cuda, \
-        merge128_cuda, merge_cuda, stage_cuda
+@contextlib.contextmanager
+def _spies(*targets):
+    """Count the calls of each (module, attribute) function while the block
+    runs -> the list of counts, one a target, read after the block."""
+    counts = [0] * len(targets)
+    saved = [getattr(m, a) for m, a in targets]
 
-    for m in (merge_cuda, join_cuda, merge128_cuda, hash_append_cuda,
-              stage_cuda):
+    def counting(i, fn):
+        def call(*a, **kw):
+            counts[i] += 1
+            return fn(*a, **kw)
+        return call
+
+    for i, ((m, a), fn) in enumerate(zip(targets, saved)):
+        setattr(m, a, counting(i, fn))
+    try:
+        yield counts
+    finally:
+        for (m, a), fn in zip(targets, saved):
+            setattr(m, a, fn)
+
+
+def _launch_counters():
+    from sh_assembly_tpu_torch.ops import hash_append_cuda, join_cuda, \
+        merge128_cuda, merge_cuda, node_join_cuda, probe_cuda, stage_cuda
+
+    return {"merge_dedup": merge_cuda, "count_join": join_cuda,
+            "merge128": merge128_cuda, "hash_append": hash_append_cuda,
+            "stage_windows": stage_cuda, "node_join": node_join_cuda,
+            "node_probes": probe_cuda}
+
+
+def _reset_launches():
+    for m in _launch_counters().values():
         m.LAUNCHES = 0
 
 
 def _launches():
-    from sh_assembly_tpu_torch.ops import hash_append_cuda, join_cuda, \
-        merge128_cuda, merge_cuda, stage_cuda
-
-    return {"merge_dedup": merge_cuda.LAUNCHES,
-            "count_join": join_cuda.LAUNCHES,
-            "merge128": merge128_cuda.LAUNCHES,
-            "hash_append": hash_append_cuda.LAUNCHES,
-            "stage_windows": stage_cuda.LAUNCHES}
+    return {name: m.LAUNCHES for name, m in _launch_counters().items()}
 
 
 # the bench's end-to-end shape (bench.py): a 1 Mbp genome, 300 k reads of
@@ -1580,9 +1772,11 @@ def phase6_pipeline_parity():
             out["cpu"][0][0]:
         raise AssertionError("cli.contiger's CUDA unitigs.fa differs from "
                              "the CPU pipeline's")
-    if not (launches["count_join"] and launches["merge128"]):
-        raise AssertionError(f"K2 or K3 never launched in cli.contiger: "
-                             f"{launches}")
+    if not all(launches[n] for n in ("count_join", "merge128",
+                                     "stage_windows", "node_join",
+                                     "node_probes")):
+        raise AssertionError(f"K2, K3, K6, K7 or K8 never launched in "
+                             f"cli.contiger: {launches}")
     print("  cli.contiger's CUDA unitigs.fa byte-identical to the CPU "
           "pipeline's")
 
@@ -1601,7 +1795,8 @@ def phase7_genome():
 
     from sh_assembly_tpu_torch.io import native
     from sh_assembly_tpu_torch.models import contiger
-    from sh_assembly_tpu_torch.ops import stage_cuda
+    from sh_assembly_tpu_torch.ops import kmerpack as kp, probe_cuda, \
+        stage_cuda
     from sh_assembly_tpu_torch.utils import profiling
 
     print("== phase 7: reads -> contigs on a 12 Mbp genome", flush=True)
@@ -1615,30 +1810,23 @@ def phase7_genome():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # count calls of the torch contraction, which runs only when the native
-    # one is missing or fails
-    fallback = []
-    torch_contract = contiger.contract_paths
-    contiger.contract_paths = lambda cn: fallback.append(1) or \
-        torch_contract(cn)
-    # and calls of the collect staging, and of its plain chain, which the
-    # card must never run on this path
-    supers, plain = [], []
-    stage_super, stage_plain = contiger._stage_super, \
-        stage_cuda.stage_windows_plain
-    contiger._stage_super = lambda *a: supers.append(1) or stage_super(*a)
-    stage_cuda.stage_windows_plain = lambda *a, **kw: plain.append(1) or \
-        stage_plain(*a, **kw)
+    # one is missing or fails; of the collect staging, the probe programs
+    # and the node join; and of the plain versions of K6, K7 and K8, which
+    # the card must never run on this path
     _reset_launches()
-    try:
+    with _spies((contiger, "contract_paths"), (contiger, "_stage_super"),
+                (stage_cuda, "stage_windows_plain"),
+                (contiger, "phantom_candidates"),
+                (contiger, "build_oriented_graph"), (kp, "join2"),
+                (kp, "join2_plain"),
+                (probe_cuda, "node_probes_plain")) as calls:
         _, logtxt, wall = _run_cli(GENOME_FLAGS + [
             "-i", os.path.join(d, "ReadFiles.txt"),
             "-o", os.path.join(d, "contigs.fa"),
             "--unitigs", os.path.join(d, "unitigs.fa"), "--device", "cuda"],
             cli="pipeline")
-    finally:
-        contiger.contract_paths = torch_contract
-        contiger._stage_super = stage_super
-        stage_cuda.stage_windows_plain = stage_plain
+    fallback, supers, plain, closure, graph, joins, joins_plain, \
+        probes_plain = calls
     launches = _launches()
     peak = torch.cuda.max_memory_allocated()
     lib = native._load()
@@ -1664,12 +1852,23 @@ def phase7_genome():
           f"{peak / 2**30:.2f} GiB; kernel launches {launches}")
     if not all(launches.values()):
         raise AssertionError(f"a kernel never launched: {launches}")
-    print(f"  collect staging: {len(supers)} _stage_super calls, "
-          f"{launches['stage_windows']} K6 launches, {len(plain)} calls of "
-          f"the plain chain")
-    if launches["stage_windows"] != len(supers) or plain:
+    print(f"  collect staging: {supers} _stage_super calls, "
+          f"{launches['stage_windows']} K6 launches, {plain} calls of the "
+          f"plain chain")
+    if launches["stage_windows"] != supers or plain:
         raise AssertionError("collect_nodes did not stage through one K6 "
                              "launch a _stage_super call")
+    print(f"  probe programs: {closure} phantom_candidates and {graph} "
+          f"build_oriented_graph calls, {launches['node_probes']} K8 "
+          f"launches, {probes_plain} calls of its plain chain; {joins} join2 "
+          f"calls, {launches['node_join']} K7 launches, {joins_plain} calls "
+          f"of join2_plain")
+    if launches["node_probes"] != closure + graph or probes_plain or \
+            launches["node_join"] != joins or joins != closure + graph or \
+            joins_plain:
+        raise AssertionError("the probe programs did not probe through one "
+                             "K8 launch and join through one K7 launch a "
+                             "call")
     stats = profiling.GLOBAL.stats
     appends, batches = (stats[p].calls for p in (
         "count:device append", "count:host read/pack"))
@@ -2439,10 +2638,12 @@ def phase11_mesh():
     res = mp_spawn(2, 2, "gloo", [("contig", contig_kw)], "11b")["contig"]
     parts = _check_parts(res, ref, "11b 2x2 gloo")
     got = _mp_report(res, "11b")
-    if not (got["count_join"] and got["merge128"] and got["stage_windows"]):
-        raise AssertionError(f"11b: K2, K3 or K6 never launched: {got}")
-    launches.update(count_join=got["count_join"], merge128=got["merge128"],
-                    stage_windows=got["stage_windows"])
+    contig_kernels = ("count_join", "merge128", "stage_windows",
+                      "node_join", "node_probes")
+    if not all(got[n] for n in contig_kernels):
+        raise AssertionError(f"11b: K2, K3, K6, K7 or K8 never launched: "
+                             f"{got}")
+    launches.update({n: got[n] for n in contig_kernels})
     out = os.path.join(d, "mp_unitigs.fa")
     sharded_contiger.finish_parts(parts, bool(res[0]["saw"]),
                                   params).write_fasta(out)
@@ -2454,7 +2655,8 @@ def phase11_mesh():
           f"mesh's; unitigs.fa finished from them byte-identical to phase "
           f"10a's contiger --mesh 4 ({os.path.getsize(fa)} bytes); K2 "
           f"{got['count_join']}, K3 {got['merge128']}, K6 "
-          f"{got['stage_windows']} launches", flush=True)
+          f"{got['stage_windows']}, K7 {got['node_join']}, K8 "
+          f"{got['node_probes']} launches", flush=True)
     del parts
 
     # 11c: the NCCL branch, one process of 4 shards on the card
@@ -2649,6 +2851,172 @@ def phase15_k6(device):
     return 0, timing
 
 
+# K7 and K8 at their real shapes: profile.stage2's 2^24 node k-mers (k =
+# 47, key_bits 36 at its 2^28 slots), phase 7's padded store for the
+# closure (its 12,232,221 nodes, then sentinel pad rows to 2^24)
+PROBE_SHAPE = dict(log2_n=24, k=47, key_bits=36, closure_real=12_232_221)
+
+
+def _probe_time(kern, plain, compare, reps: int = 10):
+    """A kernel call and its plain version on the card: the plain result
+    (one call, timed by CUDA events), the kernel's held against it
+    bitwise by ``compare``, the kernel's device time (``_queued_ms``) and a
+    wrapper call's -> (ms, wrapper_ms, plain_ms)."""
+    import torch
+
+    box = []
+    plain_ms = _time_ms(lambda: box.append(plain()), 1)
+    got = kern()
+    torch.cuda.synchronize()
+    compare(got, box.pop())
+    del got
+    torch.cuda.empty_cache()
+    return _queued_ms(kern, reps), _time_ms(kern, 3), plain_ms
+
+
+def _same(what):
+    """A compare for _probe_time: tuples of tensors (or None) bitwise."""
+    import torch
+
+    def check(got, want):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for i, (a, b) in enumerate(zip(got, want)):
+            if (a is None) != (b is None) or (a is not None and not (
+                    a.dtype == b.dtype and torch.equal(a, b))):
+                raise AssertionError(f"{what}: output {i} differs from the "
+                                     f"plain version")
+    return check
+
+
+def phase16_k7_k8(device):
+    """K7 and K8 against their plain versions, bitwise, on their edge cases
+    and at their real shapes, timed; then the split of one
+    build_oriented_graph call at phase 7's shape.  Returns the timing of
+    each kernel."""
+    import torch
+
+    from sh_assembly_tpu_torch.models import contiger
+    from sh_assembly_tpu_torch.ops import bits, kmerpack as kp, \
+        node_join_cuda, probe_cuda, spectrum as sp
+    from sh_assembly_tpu_torch.profile import stage2
+
+    print("== phase 16: K7 (node join) and K8 (node probes) against their "
+          "plain versions", flush=True)
+    before = node_join_cuda.LAUNCHES
+    n7 = found = launched = 0
+    for case in k7_cases(device):
+        found += k7_compare(*case)
+        n7 += 1
+        launched += case[3].numel() > 0
+    if node_join_cuda.LAUNCHES - before != launched:
+        raise AssertionError(f"{node_join_cuda.LAUNCHES - before} K7 "
+                             f"launches for {launched} cases with queries")
+    print(f"  K7: {n7} cases identical to join2_plain ({found} queries "
+          f"found; a table of one pair repeated, padded stores, N and Q not "
+          f"powers of two, Q = 0, N = 1, N = 0, tables in random order with "
+          f"repeats and sentinels at k = {PROBE_KS}, warps of several equal "
+          f"groups, 2^20 rows against 3 x 2^20 queries)")
+    before = probe_cuda.LAUNCHES
+    n8 = launched = 0
+    for case in k8_cases(device):
+        k8_compare(*case)
+        n8 += 1
+        launched += case[1].numel() > 0
+    if probe_cuda.LAUNCHES - before != launched:
+        raise AssertionError(f"{probe_cuda.LAUNCHES - before} K8 launches "
+                             f"for {launched} cases with nodes")
+    print(f"  K8: {n8} cases identical to node_probes_plain (k = 1 and "
+          f"{PROBE_KS}, both modes, key_bits 22, 34, 63, padding rows, "
+          f"poly-A and poly-T, N = 1 and 0)")
+
+    s = PROBE_SHAPE
+    k, kb = s["k"], s["key_bits"]
+    hp, lp = stage2.node_kmers(s["log2_n"])
+    hi, lo = bits.from_u64_np(hp, device), bits.from_u64_np(lp, device)
+    del hp, lp
+    N = hi.numel()
+    chi, clo = hi.clone(), lo.clone()
+    chi[s["closure_real"]:] = -1
+    clo[s["closure_real"]:] = -1
+    timing = {}
+    for mode, (th, tl) in (("graph", (hi, lo)), ("closure", (chi, clo))):
+        nk, P, nf = probe_cuda.ROWS[mode]
+        ms, wms, pms = _probe_time(
+            lambda: probe_cuda.node_probes_cuda(th, tl, k, kb, mode),
+            lambda: probe_cuda.node_probes_plain(th, tl, k, kb, mode),
+            _same(f"K8 {mode} at {N} nodes"))
+        # a node read once, its key, word and flip rows written once
+        moved = N * (16 + 8 * nk + 16 * P + 4 * nf)
+        # 64-bit operations at the least: 4 a base of the node's hash, 24 a
+        # probe (its hash pair, min and mask, the shifted words, their
+        # reverse complement and the compare), two 32-bit ones each
+        ops = 2 * N * (4 * k + 24 * P)
+        t8 = dict(ms=ms, wrapper_ms=wms, plain_ms=pms, library_ms=None,
+                  moved=moved, nodes=N, **bound(moved, ops))
+        _, qh, ql, _ = probe_cuda.node_probes_cuda(th, tl, k, kb, mode)
+        qh, ql = qh.reshape(-1), ql.reshape(-1)
+        Q = qh.numel()
+        ms, wms, pms = _probe_time(
+            lambda: node_join_cuda.node_join(th, tl, qh, ql),
+            lambda: kp.join2_plain(th, tl, qh, ql),
+            _same(f"K7 {mode}: {N} rows, {Q} queries"))
+        hits = int((node_join_cuda.node_join(th, tl, qh, ql) >= 0).sum())
+        moved7 = 16 * N + 20 * Q
+        t7 = dict(ms=ms, wrapper_ms=wms, plain_ms=pms, library_ms=None,
+                  moved=moved7, rows=N, queries=Q, found=hits,
+                  **bound(moved7, 2 * 10 * (N + Q)))
+        del qh, ql
+        torch.cuda.empty_cache()
+        timing[mode] = dict(node_probes=t8, node_join=t7)
+        for name, t in (("K8 node_probes", t8), ("K7 node_join", t7)):
+            print(f"  {name}, {mode} shape ({N} nodes"
+                  + (f", {t['queries']} queries, {t['found']} found"
+                     if "queries" in t else "")
+                  + f"): identical; device {t['ms']:.4f} ms (a wrapper call "
+                  f"{t['wrapper_ms']:.4f} ms), plain {t['plain_ms']:.3f} ms, "
+                  f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+                  f"{t['moved'] / 1e9:.3f} GB)", flush=True)
+
+    # the split of one build_oriented_graph call (and one closure round) at
+    # phase 7's shape, against profile.stage2's spectrum
+    spec = stage2.build_spectrum(hi, lo, kb, 1 << 28, 1 << 26)
+    torch.cuda.synchronize()
+    probes = probe_cuda.node_probes(hi, lo, k, kb, "graph")
+    keys, qh, ql = probes[0], probes[1].reshape(-1), probes[2].reshape(-1)
+    flat = keys.reshape(-1)
+    split = dict(
+        probes=_time_ms(lambda: probe_cuda.node_probes(hi, lo, k, kb,
+                                                       "graph"), 3),
+        node_join=_time_ms(lambda: kp.join2(hi, lo, qh, ql), 3),
+        count_join=_time_ms(lambda: sp.query_join_auto(spec, keys, kb), 3),
+        count_sort=_time_ms(lambda: torch.sort(bits.flip(flat)), 3))
+    del probes, keys, qh, ql, flat
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    graph = contiger.build_oriented_graph(spec, hi, lo, k, kb, 2)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del graph
+    split["total"] = _time_ms(
+        lambda: contiger.build_oriented_graph(spec, hi, lo, k, kb, 2), 3)
+    rest = split["total"] - split["probes"] - split["node_join"] - \
+        split["count_join"]
+    closure = _time_ms(lambda: contiger.phantom_candidates(
+        spec, chi, clo, chi, clo, k, kb, 2), 1)
+    print(f"  build_oriented_graph at {N} nodes ({split['total']:.2f} ms, "
+          f"peak {peak / 2**30:.2f} GiB above its inputs): probes "
+          f"{split['probes']:.2f} ms, node join {split['node_join']:.2f} ms, "
+          f"count join {split['count_join']:.2f} ms (of which the library "
+          f"sort {split['count_sort']:.2f} ms), the rest {rest:.2f} ms; "
+          f"phantom_candidates over the padded store (closure round 1) "
+          f"{closure:.2f} ms", flush=True)
+    del spec, hi, lo, chi, clo
+    torch.cuda.empty_cache()
+    return timing
+
+
 def phase12_profiles():
     """The profiling entry points of the counting hot path and the
     Contiger at their defaults (``profile.{entry,hot,collect,stage2}``)."""
@@ -2747,6 +3115,7 @@ def main() -> int:
         bench = phase13_bench()
         err5, timing5b = phase14_k5(dev)
         err6, timing6 = phase15_k6(dev)
+        timing16 = phase16_k7_k8(dev)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     loaded = [m for m in sys.modules
@@ -2768,6 +3137,14 @@ def main() -> int:
                                "bound_by", "library_ms")},
         **{f"stage2_{k}": st2[k] for k in ("ms", "wrapper_ms", "plain_ms",
                                            "bound_ms")}}
+    # K7 and K8: profile.stage2's graph shape, the closure's round 1 beside it
+    for name in ("node_join", "node_probes"):
+        g, c = timing16["graph"][name], timing16["closure"][name]
+        timing[name] = {
+            **{k: g[k] for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")},
+            **{f"closure_{k}": c[k] for k in ("ms", "wrapper_ms", "plain_ms",
+                                              "bound_ms")}}
     ops = "sh_assembly_tpu/ops/"
     pipeline, prof = "phase 7 (cli.pipeline)", \
         "phase 8 (profile.blocksort.main); the main path: 0"
@@ -2784,7 +3161,15 @@ def main() -> int:
              "XLA-fused lax.scan, not a pl.pallas_call)", err5, pipeline),
             ("stage_windows", "stage_windows",
              "sh_assembly_tpu/models/contiger.py:79 _stage_super (a jax.jit "
-             "program, not a pl.pallas_call)", err6, pipeline)]
+             "program, not a pl.pallas_call)", err6, pipeline),
+            ("node_join", "node_join",
+             "sh_assembly_tpu/ops/kmerpack.py:164 join2 (a sort-join inside "
+             "the jax.jit programs sh_assembly_tpu/models/contiger.py:506 "
+             "and :644, not a pl.pallas_call)", 0, pipeline),
+            ("node_probes", "node_probes",
+             "sh_assembly_tpu/models/contiger.py:421-505 _node_hashes, "
+             "_succ_probes, _sibling_probes (inside the jax.jit programs "
+             ":506 and :644, not a pl.pallas_call)", 0, pipeline)]
     print(smi)  # the card and its power limit again, beside the numbers
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",

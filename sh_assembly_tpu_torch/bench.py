@@ -21,7 +21,8 @@ in bench.py's order (each a function of its own):
   3. K1 against its plain twin, bitwise, after a merge and a sweep
      (``k1_identity``); a mismatch raises
   4. stage 2 (``stage2``): node collection, graph probes and contraction
-     on a 2 Mbp genome at 30x, and the device-side staging and probe rates
+     on a 2 Mbp genome at 30x, and the device-side staging and probe rates,
+     with the launches of kernels K8 (node probes) and K7 (node join)
   5. the mesh's routed/plain ratio (``mesh_ratio``: ``profile.mesh.run`` at
      n = 8 on the device)
   6. end to end, reads -> contigs (``end_to_end``): ``cli.pipeline.main``
@@ -75,8 +76,8 @@ from .cli import pipeline as pipe
 from .cli.cqf_denoise import resolve_device
 from .io import fastq
 from .models import contiger, counter
-from .ops import _build, kmerpack as kp, merge_cuda, nthash, packio, \
-    spectrum as sp
+from .ops import _build, kmerpack as kp, merge_cuda, node_join_cuda, \
+    nthash, packio, probe_cuda, spectrum as sp
 from .profile import mesh
 from .utils.profiling import median_ms
 
@@ -482,11 +483,15 @@ def stage2(device, genome: np.ndarray, rows: int,
         return n, t_collect, t_probe, time.time() - t0
 
     run_stage2()  # the first launches
+    before = (probe_cuda.LAUNCHES, node_join_cuda.LAUNCHES)
     n_nodes, t_collect, t_probe, t_graph = run_stage2()
+    k8, k7 = probe_cuda.LAUNCHES - before[0], \
+        node_join_cuda.LAUNCHES - before[1]
     log(f"# stage2(qb={log2_capacity}, {n_nodes/1e6:.3f}M nodes): collect "
         f"{windows/t_collect/1e6:.1f}M windows/s ({t_collect:.3f}s), "
         f"probe+contract {n_nodes/t_graph/1e6:.2f}M nodes/s ({t_graph:.3f}s: "
-        f"probes {t_probe:.3f}s, host contraction {t_graph - t_probe:.3f}s)"
+        f"probes {t_probe:.3f}s, host contraction {t_graph - t_probe:.3f}s; "
+        f"K8 node_probes {k8}, K7 node_join {k7} launches)"
         f"  [includes host feed]")
 
     # device-side rates on pre-staged inputs
@@ -517,18 +522,23 @@ def stage2(device, genome: np.ndarray, rows: int,
         g2[starts[:, None] + np.arange(K)]).to(device), K))
     contiger.build_oriented_graph(spec, dh, dl, K, kb, 2)
     _sync(device)
+    before = (probe_cuda.LAUNCHES, node_join_cuda.LAUNCHES)
     t0 = time.time()
     contiger.build_oriented_graph(spec, dh, dl, K, kb, 2)
     _sync(device)
     t_dev_probe = time.time() - t0
+    dev_k8, dev_k7 = probe_cuda.LAUNCHES - before[0], \
+        node_join_cuda.LAUNCHES - before[1]
     log(f"# stage2 device-side: stage {SB*W/t_stage/1e6:.0f}M windows/s, "
         f"probe {Np2/t_dev_probe/1e6:.2f}M nodes/s (pre-staged inputs, no "
-        f"feed)")
+        f"feed; K8 node_probes {dev_k8}, K7 node_join {dev_k7} launches)")
     return dict(nodes=n_nodes, windows=windows, collect_s=t_collect,
                 collect_windows_per_s=windows / t_collect, graph_s=t_graph,
                 graph_probe_s=t_probe, graph_nodes_per_s=n_nodes / t_graph,
                 stage_windows_per_s=SB * W / t_stage, probe_nodes=Np2,
-                probe_nodes_per_s=Np2 / t_dev_probe)
+                probe_nodes_per_s=Np2 / t_dev_probe,
+                node_probes_launches=k8 + dev_k8,
+                node_join_launches=k7 + dev_k7)
 
 
 # ---------------------------------------------------------------------------

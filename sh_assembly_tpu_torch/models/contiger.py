@@ -12,9 +12,11 @@ and the same output (``unitigs.fa`` byte-identical):
      k <= 62 bound does not apply).
   B. phantom closure: successor and suffix-sibling probes whose hash key
      is counted but whose k-mer is not a node join the node set, round by
-     round over the frontier, to the fixpoint.
+     round over the frontier, to the fixpoint (the probes through kernel
+     K8, their node join through K7, their counts through K2).
   C. edge probing: the 8 successor probes of both orientations of every
-     node (one ``join2`` for the successor indices, one K2 count join for
+     node (kernel K8, ``ops/probe_cuda``; one node join, kernel K7 behind
+     ``kmerpack.join2``, for the successor indices, one K2 count join for
      the 9N counts) give out-degrees and contractible chain edges.
   D. contraction on the host (``cpp/contract.cpp``) and the vectorised
      host assembly: sequences, medians, links, the solid-seed component
@@ -43,7 +45,7 @@ import torch
 from .. import config as cfg
 from ..io import fastq
 from ..ops import bits, kmerpack as kp, kmerpack_np as kpn, merge128_cuda, \
-    nthash, packio, spectrum as sp, stage_cuda
+    packio, probe_cuda, spectrum as sp, stage_cuda
 from ..utils import dna, profiling
 from ..utils.logging import log
 
@@ -266,87 +268,6 @@ def collect_nodes(spec: sp.Spectrum, batches: Iterable[fastq.Batch], k: int,
 # Stages B+C: phantom closure and graph probes
 # --------------------------------------------------------------------------
 
-def _rol(x: torch.Tensor, s: int) -> torch.Tensor:
-    s = s % 64
-    if s == 0:
-        return x
-    return (x << s) | bits.srl(x, 64 - s)
-
-
-def _node_hashes(hi, lo, k: int):
-    """(fh, rh) of each node's canonical-orientation k-mer (O(k) vector
-    ops)."""
-    seeds = nthash.seed_table(hi.device)
-    cseeds = nthash.cseed_table(hi.device)
-    fh = torch.zeros_like(hi)
-    rh = torch.zeros_like(hi)
-    for j in range(k):
-        b = kp.base_at(hi, lo, j, k).long()
-        fh = fh ^ _rol(seeds[b], (k - 1 - j) % 64)
-        rh = rh ^ _rol(cseeds[b], j % 64)
-    return fh, rh
-
-
-def _succ_probes(hi, lo, rhi, rlo, fh0, rh0, k: int, mask: int):
-    """The 8 successor probes of both orientations of every node: the
-    batched form of the reference's get_unitig_forward point queries.
-
-    Returns (probe_keys[8], succ_hi[8], succ_lo[8] canonical packed
-    successor k-mers, succ_flip[8] int32 orientation flips).
-    """
-    seeds = nthash.seed_table(hi.device)
-    cseeds = nthash.cseed_table(hi.device)
-    probe_keys, succ_hi, succ_lo, succ_flip = [], [], [], []
-    for o in range(2):
-        ohi = hi if o == 0 else rhi
-        olo = lo if o == 0 else rlo
-        ofh = fh0 if o == 0 else rh0
-        orh = rh0 if o == 0 else fh0
-        out_b = kp.first_base(ohi, olo, k).long()
-        for X in range(4):
-            sfh = _rol(ofh, 1) ^ _rol(seeds[out_b], k % 64) ^ seeds[X]
-            srh = _rol(orh, 63) ^ _rol(cseeds[out_b], 63) ^ \
-                _rol(cseeds[X], (k - 1) % 64)
-            probe_keys.append(bits.umin(sfh, srh) & mask)
-            shi, slo = kp.shift_in_base(ohi, olo, X, k)
-            srchi, srclo = kp.revcomp_packed(shi, slo, k)
-            schi, sclo, sflip = kp.canonicalize(shi, slo, srchi, srclo)
-            succ_hi.append(schi)
-            succ_lo.append(sclo)
-            succ_flip.append(sflip.int())
-    return probe_keys, succ_hi, succ_lo, succ_flip
-
-
-def _sibling_probes(hi, lo, rhi, rlo, fh0, rh0, k: int, mask: int):
-    """The 8 suffix-sibling candidate probes of both orientations.
-
-    Siblings share a junction's (k-1)-suffix (the reference's before-side
-    spawns); the hash replaces the base-0 term of the ntHash XOR.
-
-    Returns (probe_keys[8], sib_hi[8], sib_lo[8] canonical packed k-mers).
-    """
-    seeds = nthash.seed_table(hi.device)
-    cseeds = nthash.cseed_table(hi.device)
-    probe_keys, sib_hi, sib_lo = [], [], []
-    for o in range(2):
-        ohi = hi if o == 0 else rhi
-        olo = lo if o == 0 else rlo
-        ofh = fh0 if o == 0 else rh0
-        orh = rh0 if o == 0 else fh0
-        t0 = kp.first_base(ohi, olo, k).long()
-        for Y in range(4):
-            sfh = ofh ^ _rol(seeds[t0], (k - 1) % 64) ^ \
-                _rol(seeds[Y], (k - 1) % 64)
-            srh = orh ^ cseeds[t0] ^ cseeds[Y]
-            probe_keys.append(bits.umin(sfh, srh) & mask)
-            whi, wlo = kp.replace_first_base(ohi, olo, Y, k)
-            wrchi, wrclo = kp.revcomp_packed(whi, wlo, k)
-            wchi, wclo, _wf = kp.canonicalize(whi, wlo, wrchi, wrclo)
-            sib_hi.append(wchi)
-            sib_lo.append(wclo)
-    return probe_keys, sib_hi, sib_lo
-
-
 def phantom_candidates(spec: sp.Spectrum, store_hi, store_lo, hi, lo,
                        k: int, key_bits: int, abundance_min: int):
     """Successor and sibling k-mers of the FRONTIER (hi, lo) that pass the
@@ -363,22 +284,16 @@ def phantom_candidates(spec: sp.Spectrum, store_hi, store_lo, hi, lo,
     """
     N = hi.shape[0]
     dev = hi.device
-    mask = (1 << key_bits) - 1
     valid = ~((hi == SENT) & (lo == SENT))
-    fh0, rh0 = _node_hashes(hi, lo, k)
-    rhi, rlo = kp.revcomp_packed(hi, lo, k)
-    probe_keys, succ_hi, succ_lo, _ = _succ_probes(
-        hi, lo, rhi, rlo, fh0, rh0, k, mask)
-    skeys, shi2, slo2 = _sibling_probes(hi, lo, rhi, rlo, fh0, rh0, k, mask)
-    probe_keys += skeys
-    P = len(probe_keys)  # 16 probes per node
-    all_hi = torch.cat(succ_hi + shi2)
-    all_lo = torch.cat(succ_lo + slo2)
-    del succ_hi, succ_lo, shi2, slo2
+    # the 16 probes a node (kernel K8 on CUDA tensors), one node join for
+    # their indices (K7) and one K2 count join for their keys
+    keys, probe_hi, probe_lo, _ = probe_cuda.node_probes(
+        hi, lo, k, key_bits, "closure")
+    P = keys.shape[0]  # 16 probes per node
+    all_hi, all_lo = probe_hi.reshape(-1), probe_lo.reshape(-1)
     all_j = kp.join2(store_hi, store_lo, all_hi, all_lo).reshape(P, N)
-    counts = sp.query_join_auto(
-        spec, torch.cat(probe_keys), key_bits).reshape(P, N)
-    del probe_keys
+    counts = sp.query_join_auto(spec, keys, key_bits).reshape(P, N)
+    del keys
     ph = ((counts >= abundance_min) & (all_j < 0) & valid[None, :]) \
         .reshape(-1)
     # a probe k-mer is never the sentinel (its low bits are zero for
@@ -475,25 +390,20 @@ def build_oriented_graph(spec: sp.Spectrum, hi, lo, k: int, key_bits: int,
     """
     N = hi.shape[0]
     dev = hi.device
-    mask = (1 << key_bits) - 1
     # padding entries (both words all-ones) never equal a left-aligned real
     # k-mer for k <= 63
     valid = ~((hi == SENT) & (lo == SENT))
 
-    fh0, rh0 = _node_hashes(hi, lo, k)
-    node_keys = bits.umin(fh0, rh0) & mask
-    rhi, rlo = kp.revcomp_packed(hi, lo, k)
-
-    # the 8 successor probes per node; one sort-join resolves all 8N
-    # successor-index lookups, one K2 count join all 9N count queries
-    probe_keys8, succ_hi, succ_lo, succ_flip = _succ_probes(
-        hi, lo, rhi, rlo, fh0, rh0, k, mask)
-    all_j = kp.join2(hi, lo, torch.cat(succ_hi),
-                     torch.cat(succ_lo)).reshape(8, N)
+    # the 8 successor probes a node and its own key (kernel K8 on CUDA
+    # tensors); one node join (K7) resolves all 8N successor indices, one K2
+    # count join all 9N counts
+    keys, succ_hi, succ_lo, succ_flip = probe_cuda.node_probes(
+        hi, lo, k, key_bits, "graph")
+    all_j = kp.join2(hi, lo, succ_hi.reshape(-1),
+                     succ_lo.reshape(-1)).reshape(8, N)
     del succ_hi, succ_lo
-    all_counts = sp.query_join_auto(
-        spec, torch.cat([node_keys] + probe_keys8), key_bits).reshape(9, N)
-    del probe_keys8
+    all_counts = sp.query_join_auto(spec, keys, key_bits).reshape(9, N)
+    del keys
     node_counts = all_counts[0]
 
     nsucc, succ_idx, succ_orient = [], [], []

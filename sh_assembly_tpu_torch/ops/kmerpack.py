@@ -154,24 +154,47 @@ def sort_pairs(hi: torch.Tensor, lo: torch.Tensor, *minor: torch.Tensor):
     return perm
 
 
+def join2_check(N: int, Q: int) -> None:
+    """Refuse the table and query sizes the JAX package's join2 refuses
+    (its packed (run id, index + 1) words would overflow); both routes of
+    ``join2`` call it."""
+    B = max(N.bit_length() + 1, 2)  # bits for (match index + 1)
+    if (Q + N).bit_length() + B > 63:
+        raise ValueError("join2 packing overflow")
+
+
 def join2(table_hi: torch.Tensor, table_lo: torch.Tensor,
           qhi: torch.Tensor, qlo: torch.Tensor) -> torch.Tensor:
     """Exact-match join of 128-bit queries against a (hi, lo) key table.
 
     Returns int32 per query: the table index holding the identical pair, or
-    -1.  Table keys must be distinct (duplicates answer with the largest
-    index, as in the JAX package); table order is irrelevant.
+    -1; where the table holds a pair more than once, the largest index (the
+    sentinel pad rows), as in the JAX package.  Table order is irrelevant.
+    CUDA tensors launch kernel K7 (``node_join_cuda``, a hash join), CPU
+    tensors take ``join2_plain``.
+    """
+    if qhi.is_cuda:
+        from . import node_join_cuda
 
-    The JAX package's sort-join: one stable lexicographic sort groups each
-    query with its table row (table rows first: the concatenation is
-    already in (tag, index) order), a cummax of (run id, row + 1) carries
-    the row through the run, and a scatter restores query order.
+        return node_join_cuda.node_join(
+            table_hi.contiguous(), table_lo.contiguous(), qhi.contiguous(),
+            qlo.contiguous())
+    return join2_plain(table_hi, table_lo, qhi, qlo)
+
+
+def join2_plain(table_hi: torch.Tensor, table_lo: torch.Tensor,
+                qhi: torch.Tensor, qlo: torch.Tensor) -> torch.Tensor:
+    """``join2`` on any device: the JAX package's sort-join.
+
+    One stable lexicographic sort groups each query with its table rows
+    (table rows first, in index order: the concatenation is already in
+    (tag, index) order), a cummax of (run id, row + 1) carries the largest
+    row through the run, and a scatter restores query order.
     """
     N = table_hi.shape[0]
     Q = qhi.shape[0]
+    join2_check(N, Q)
     B = max(N.bit_length() + 1, 2)  # bits for (match index + 1)
-    if (Q + N).bit_length() + B > 63:
-        raise ValueError("join2 packing overflow")
     dev = qhi.device
     h = torch.cat([table_hi, qhi])
     lo = torch.cat([table_lo, qlo])

@@ -12,8 +12,11 @@ all_to_all round trip:
                 tensors) -> pack (index | count) -> all_to_all back ->
                 scatter by index
   node join:    route (hi, lo, index) by k-mer owner -> the owner's
-                ``join2`` against its store -> global index = shard * cap
-                + local -> all_to_all back
+                ``join2`` against its store (kernel K7 on CUDA tensors)
+                -> global index = shard * cap + local -> all_to_all back
+  probes:       a shard's nodes' successor and sibling probes and their
+                keys (``probe_cuda.node_probes``, kernel K8 on CUDA
+                tensors)
   store fold:   route (k-mer, inverted seed flag) triples to their owners,
                 sort them, fold them into the owner's store (kernel K3 on
                 CUDA tensors: the single-device flush's fold)
@@ -43,7 +46,7 @@ from .. import config as cfg
 from ..io import fastq
 from ..models import contiger
 from ..ops import bits, kmerpack as kp, merge128_cuda, packio, \
-    spectrum as sp, stage_cuda
+    probe_cuda, spectrum as sp, stage_cuda
 from ..utils import profiling
 from ..utils.logging import log
 from .sharded import ShardedCounter, quota_rows, row_width, \
@@ -295,21 +298,16 @@ class ShardedContiger:
         or fail a count that does not change), so probing the last round's
         additions gives the same nodes in the same rounds."""
         k, Cl = self.k, self.node_cap_local
-        mask = (1 << self.key_bits) - 1
         Qc = self._quota(16 * Cl)
         probes, joins, keys = [], [], []
         for hi, lo in frontiers:
-            fh0, rh0 = contiger._node_hashes(hi, lo, k)
-            rhi, rlo = kp.revcomp_packed(hi, lo, k)
-            pkeys, shi, slo, _ = contiger._succ_probes(
-                hi, lo, rhi, rlo, fh0, rh0, k, mask)
-            skeys, shi2, slo2 = contiger._sibling_probes(
-                hi, lo, rhi, rlo, fh0, rh0, k, mask)
-            ahi, alo = torch.cat(shi + shi2), torch.cat(slo + slo2)
+            pkeys, phi, plo, _ = probe_cuda.node_probes(
+                hi, lo, k, self.key_bits, "closure")
+            ahi, alo = phi.reshape(-1), plo.reshape(-1)
             probes.append((ahi, alo))
             joins.append((ahi, alo))
-            keys.append(torch.cat(pkeys + skeys))
-            del fh0, rh0, rhi, rlo, pkeys, shi, slo, skeys, shi2, slo2
+            keys.append(pkeys.reshape(-1))
+            del pkeys, phi, plo
         frontiers.clear()
         all_j, dj = self._dist_join(stores, joins, Qc)
         cnts, dc = self._dist_counts(specs, keys, Qc)
@@ -333,20 +331,17 @@ class ShardedContiger:
         node_counts[Cl], valid[Cl]) with GLOBAL indices (zeros in the
         store's empty slots), and dropped."""
         k, Cl = self.k, self.node_cap_local
-        mask = (1 << self.key_bits) - 1
         Qc = self._quota(9 * Cl)
         Qj = self._quota(8 * Cl)
         joins, keys, flips = [], [], []
         for st in stores:
-            hi, lo = st.hi[:st.n], st.lo[:st.n]  # the live nodes
-            fh0, rh0 = contiger._node_hashes(hi, lo, k)
-            rhi, rlo = kp.revcomp_packed(hi, lo, k)
-            pkeys, shi, slo, sflip = contiger._succ_probes(
-                hi, lo, rhi, rlo, fh0, rh0, k, mask)
-            keys.append(torch.cat([bits.umin(fh0, rh0) & mask] + pkeys))
-            joins.append((torch.cat(shi), torch.cat(slo)))
+            # the live nodes' 8 successor probes and own key
+            pkeys, shi, slo, sflip = probe_cuda.node_probes(
+                st.hi[:st.n], st.lo[:st.n], k, self.key_bits, "graph")
+            keys.append(pkeys.reshape(-1))
+            joins.append((shi.reshape(-1), slo.reshape(-1)))
             flips.append(sflip)
-            del fh0, rh0, rhi, rlo, pkeys, shi, slo
+            del pkeys, shi, slo
         all_j, dj = self._dist_join(stores, joins, Qj)
         all_c, dc = self._dist_counts(specs, keys, Qc)
         out = []

@@ -9,8 +9,9 @@ the consecutive windows of a random genome (``np.random.default_rng(7)``),
 so that successor probes hit and chains contract.  The spectrum holds
 every node's key twice (the abundance filter passes) and random keys up
 to half its slots.  Times ``contiger.build_oriented_graph`` (the 8 + 1
-probes a node) and ``contiger.contract_paths_host`` (the native walk),
-the second of two runs each, and logs their rates.
+probes a node: kernels K8 and K7 and the K2 count join on the card) and
+``contiger.contract_paths_host`` (the native walk), the second of two runs
+each, and logs their rates and the K7 and K8 launches of the timed run.
 
 It does not carry the script's two faults (ROADMAP §3, fault 8): its
 default is N = 2^24, at which the script's constants were taken (it
@@ -32,7 +33,7 @@ import torch
 
 from ..cli.cqf_denoise import resolve_device
 from ..models import contiger
-from ..ops import bits, spectrum as sp
+from ..ops import bits, node_join_cuda, probe_cuda, spectrum as sp
 from ..utils.logging import log
 
 # The numbers of the last run() in this process, for callers of main().
@@ -66,7 +67,7 @@ def build_spectrum(hi: torch.Tensor, lo: torch.Tensor, key_bits: int,
     generator, seed 7) until half the slots hold distinct keys; a merge
     after every buffer-sized insert."""
     device = hi.device
-    fh, rh = contiger._node_hashes(hi, lo, k)
+    fh, rh = probe_cuda.node_hashes(hi, lo, k)
     keys = bits.umin(fh, rh) & ((1 << key_bits) - 1)
     del fh, rh
     spec = sp.make(capacity, buf_capacity, device)
@@ -108,14 +109,19 @@ def run(device, log2_n: int = 24, log2_capacity: int = 28,
         return t_probe, time.time() - t0, cn, int(nsucc.long().sum())
 
     once()  # warm-up
+    launches = (probe_cuda.LAUNCHES, node_join_cuda.LAUNCHES)
     t_probe, t_contract, cn, n_succ = once()
+    k8, k7 = (a - b for a, b in zip(
+        (probe_cuda.LAUNCHES, node_join_cuda.LAUNCHES), launches))
     res = dict(nodes=N, distinct=spec.ndistinct,
                chain_edges=int((cn >= 0).sum()), succ_edges=n_succ,
                probe_s=t_probe, contract_s=t_contract,
                probe_nodes_per_s=N / t_probe,
-               contract_nodes_per_s=N / t_contract)
+               contract_nodes_per_s=N / t_contract,
+               node_probes_launches=k8, node_join_launches=k7)
     log(f"probe (build_oriented_graph): {t_probe:.3f} s = "
-        f"{N / t_probe / 1e6:.2f} M nodes/s")
+        f"{N / t_probe / 1e6:.2f} M nodes/s (K8 node_probes {k8} and K7 "
+        f"node_join {k7} launches)")
     log(f"contract (native host walk): {t_contract:.3f} s = "
         f"{N / t_contract / 1e6:.2f} M nodes/s ({res['chain_edges']} chain "
         f"edges, {n_succ} successor edges)")

@@ -1,7 +1,8 @@
 """Kernels K1 (csrc/merge_dedup.cu), K2 (csrc/count_join.cu), K3
-(csrc/merge128.cu), K4 (csrc/block_sort.cu), K5 (csrc/hash_append.cu) and
-K6 (csrc/stage_windows.cu) against their plain PyTorch versions on the GPU,
-bitwise, and the
+(csrc/merge128.cu), K4 (csrc/block_sort.cu), K5 (csrc/hash_append.cu), K6
+(csrc/stage_windows.cu), K7 (csrc/node_join.cu) and K8
+(csrc/node_probes.cu) against their plain PyTorch versions on the GPU,
+bitwise, the Contiger's probe programs on CUDA against the CPU, and the
 counting stage, the Contiger, their
 sharded forms (4 shards on the card), the set operations and the traveled
 queries on CUDA against the CPU path.
@@ -22,7 +23,9 @@ from sh_assembly_tpu_torch.io import fastq
 from sh_assembly_tpu_torch.models import counter
 from sh_assembly_tpu_torch.models import contiger
 from sh_assembly_tpu_torch.ops import blocksort_cuda, hash_append_cuda, \
-    join_cuda, merge128_cuda, merge_cuda, stage_cuda
+    join_cuda, merge128_cuda, merge_cuda, node_join_cuda, probe_cuda, \
+    stage_cuda
+from sh_assembly_tpu_torch.ops import kmerpack as kp
 from sh_assembly_tpu_torch.ops import spectrum as sp
 
 pytestmark = pytest.mark.cuda
@@ -232,15 +235,15 @@ def test_contiger_cuda_matches_cpu(gpu, k):
         spec, _ = counter.build_spectrum(
             iter(stream()), sizing, capacity=1 << 16, buf_capacity=1 << 14,
             batch_cfg=bc, device=dev)
-        before = (join_cuda.LAUNCHES, merge128_cuda.LAUNCHES)
+        mods = (join_cuda, merge128_cuda, node_join_cuda, probe_cuda)
+        before = [m.LAUNCHES for m in mods]
         au = contiger.assemble_unitigs_arrays(spec, iter(stream()), params,
                                               key_bits)
-        launched = (join_cuda.LAUNCHES - before[0],
-                    merge128_cuda.LAUNCHES - before[1])
+        launched = tuple(m.LAUNCHES - b for m, b in zip(mods, before))
         out[str(dev)] = (au, launched)
     (ac, lc), (ag, lg) = out["cpu"], out[str(gpu)]
-    assert lc == (0, 0)
-    assert lg[0] > 0 and lg[1] > 0
+    assert lc == (0, 0, 0, 0)
+    assert all(n > 0 for n in lg)
     assert ac.n == ag.n > 0
     for f in ("seq_codes", "offsets", "med", "after_ptr", "after_val",
               "before_ptr", "before_val"):
@@ -310,17 +313,18 @@ def test_sharded_contiger_cuda_matches_cpu(gpu, tmp_path):
     out = {}
     for dev in ("cpu", gpu):
         sc = driver.make_counter(sizing, 4, bc, device=dev)
-        before = (join_cuda.LAUNCHES, merge128_cuda.LAUNCHES,
-                  stage_cuda.LAUNCHES)
+        mods = (join_cuda, merge128_cuda, stage_cuda, node_join_cuda,
+                probe_cuda)
+        before = [m.LAUNCHES for m in mods]
         au = driver.contiger_sharded(
             sc, sc.from_host(keys, counts), files,
             cfg.ContigerParams(k=k), batch_cfg=bc)
-        out[str(dev)] = (au, (join_cuda.LAUNCHES - before[0],
-                              merge128_cuda.LAUNCHES - before[1],
-                              stage_cuda.LAUNCHES - before[2]))
+        out[str(dev)] = (au, tuple(m.LAUNCHES - b
+                                   for m, b in zip(mods, before)))
     (ac, lc), (ag, lg) = out["cpu"], out[str(gpu)]
-    assert lc == (0, 0, 0) and lg[0] > 0 and lg[1] > 0
+    assert lc == (0, 0, 0, 0, 0) and lg[0] > 0 and lg[1] > 0
     assert lg[2] > 0 and lg[2] % 4 == 0  # K6: once a shard a batch
+    assert lg[3] > 0 and lg[4] > 0  # K7 and K8: the mesh's joins and probes
     assert ac.n == ag.n > 0
     for f in ("seq_codes", "offsets", "med", "after_ptr", "after_val",
               "before_ptr", "before_val"):
@@ -494,3 +498,91 @@ def test_k6_refuses_what_the_kernel_does_not_take(gpu):
         stage_cuda.stage_windows(*words, seed, 0, odd[1:].view(pk.shape), nm,
                                  ln, sc, 31, 30)
     assert stage_cuda.LAUNCHES == before
+
+
+def test_k7_matches_plain(gpu):
+    """K7 against join2_plain on the edge cases of smoke phase 16: a table
+    of one pair repeated, padded stores, N and Q not powers of two, Q = 0,
+    N = 1, N = 0, tables in random order at k on both sides of 32, warps
+    holding several groups of equal pairs, 2^20 rows."""
+    names = []
+    for case in chip_smoke.k7_cases(gpu):
+        before = node_join_cuda.LAUNCHES
+        chip_smoke.k7_compare(*case)
+        assert node_join_cuda.LAUNCHES == before + (case[3].numel() > 0)
+        names.append(case[0])
+    for want in ("all_duplicates", "sentinel_pads", "not_pow2", "q0", "n1",
+                 "n0", "random_order_k21", "random_order_k63", "warp_groups",
+                 "pads_2^20"):
+        assert want in names
+
+
+def test_k8_matches_plain(gpu):
+    """K8 against node_probes_plain in both modes at k = 1, 21, 31, 32, 33,
+    47 and 63 with padding rows, one node and none."""
+    names = []
+    for case in chip_smoke.k8_cases(gpu):
+        before = probe_cuda.LAUNCHES
+        chip_smoke.k8_compare(*case)
+        assert probe_cuda.LAUNCHES == before + (case[1].numel() > 0)
+        names.append(case[0])
+    assert len(names) == 18 and "k63_closure_kb22" in names
+
+
+def test_k7_k8_refuse_what_the_kernels_do_not_take(gpu):
+    t = torch.zeros(8, dtype=torch.int64, device=gpu)
+    before = (node_join_cuda.LAUNCHES, probe_cuda.LAUNCHES)
+    for args in ((t, t, t.cpu(), t), (t, t[:7], t, t), (t, t, t.int(), t),
+                 (t, t, t[::2], t[::2])):
+        with pytest.raises(ValueError):
+            node_join_cuda.node_join(*args)
+    with pytest.raises(ValueError):  # join2 routes CUDA queries to K7
+        kp.join2(t.cpu(), t.cpu(), t, t)
+    for args in ((t, t, 0, 22, "graph"), (t, t, 64, 22, "graph"),
+                 (t, t, 47, 64, "graph"), (t, t, 47, 22, "both"),
+                 (t, t[:7], 47, 22, "graph"), (t[::2], t[::2], 47, 22,
+                                                "closure")):
+        with pytest.raises(ValueError):
+            probe_cuda.node_probes(*args)
+    with pytest.raises(ValueError):  # the CUDA wrapper takes no CPU tensor
+        probe_cuda.node_probes_cuda(t.cpu(), t.cpu(), 47, 22, "graph")
+    assert (node_join_cuda.LAUNCHES, probe_cuda.LAUNCHES) == before
+
+
+def test_probe_programs_cuda_match_cpu(gpu):
+    """build_oriented_graph and a closure round (phantom_candidates) on the
+    card give the CPU's tensors, each call through one launch of K8 and
+    one of K7 and no call of their plain versions."""
+    rng = np.random.default_rng(13)
+    genome = rng.integers(0, 4, size=6000).astype(np.uint8)
+    k, kb = 47, 20  # dense keys: phantoms exist
+    b = fastq.Batcher(k, 64, 136)
+    batches = [x for s in rng.integers(0, 5870, size=1000)
+               for x in b.add_read(genome[s:s + 130])] + list(b.flush())
+    sizing = cfg.CounterSizing(
+        k=k, qb=12, hb=kb, num_true_kmers=0, num_false_kmers=0,
+        n_true_kmers=1, num_deNoise=0, ndistinct_for_deNoise=1 << 62,
+        end_deNoise=False, fr=0.0)
+    bc = cfg.BatchConfig(reads_per_batch=64, max_read_len=136)
+    out = {}
+    for dev in ("cpu", gpu):
+        spec, _ = counter.build_spectrum(
+            iter(batches), sizing, capacity=1 << 15, buf_capacity=1 << 14,
+            batch_cfg=bc, device=dev)
+        hi, lo, _ = contiger.collect_nodes(spec, iter(batches), k, kb, 2)
+        n = hi.numel()
+        pad = torch.full((1 << n.bit_length(),), -1, dtype=torch.int64,
+                         device=hi.device)
+        hp, lp = pad.clone(), pad.clone()
+        hp[:n], lp[:n] = hi, lo
+        mods = (node_join_cuda, probe_cuda)
+        before = [m.LAUNCHES for m in mods]
+        graph = contiger.build_oriented_graph(spec, hp, lp, k, kb, 2)
+        ph = contiger.phantom_candidates(spec, hp, lp, hp, lp, k, kb, 2)
+        out[str(dev)] = ([t.cpu() for t in graph + ph[:2]], ph[2:],
+                         tuple(m.LAUNCHES - b for m, b in zip(mods, before)))
+    (tc, nc, lc), (tg, ng, lg) = out["cpu"], out[str(gpu)]
+    assert lc == (0, 0) and lg == (2, 2)
+    assert nc == ng and nc[0] > 0
+    for a, b in zip(tc, tg):
+        assert torch.equal(a, b)
