@@ -63,10 +63,15 @@ exits non-zero without printing a result:
      of the genome, every kernel of the path (K1, K2, K3, K5-K8) must
      launch, K5 by the stack (fewer launches and append calls than
      batches), K6 once a ``_stage_super`` call with no call of its plain
-     chain, K8 and K7 once a call of the probe programs
-     (``phantom_candidates``, ``build_oriented_graph``) with no call of
+     chain, K8 once a call of the probe programs (``phantom_candidates``,
+     ``build_oriented_graph``), K7 through one table for the run (a build,
+     an append a closure round that found phantoms, a probe a round and
+     one for the graph) with no one-shot ``join2``, no call of
      ``node_probes_plain`` or ``join2_plain``, and the native contraction
-     library must load.
+     library must load; prints every K7 call's device time; then replays
+     the closure and the graph probe on the run's inputs and holds every
+     probe of the table against ``join2_plain`` on that round's padded
+     store.
 
   8. K4 (window sort) against its plain PyTorch version on the card,
      bitwise: windows of 2^7 to 2^19 values (several windows in a block,
@@ -169,15 +174,23 @@ exits non-zero without printing a result:
      queries), N and Q not powers of two, Q = 0, N = 1, N = 0, tables in
      random order with repeats and sentinels at k = 21, 31, 32, 33, 47,
      63, warps holding several groups of equal pairs, and 2^20 rows
-     against 3 x 2^20 queries; K8 at k = 1 and those k in both modes with
-     padding rows; then both at their real shapes, timed as phase 14 times
-     K5 beside the bound and the plain version: profile.stage2's 2^24 node
-     k-mers (K8 graph mode, K7 with their 8 x 2^24 successors) and phase
-     7's padded store (12,232,221 nodes, sentinel pad to 2^24: K8 closure
-     mode, K7 with the 16 x 2^24 probes of closure round 1); and the split
-     of one build_oriented_graph call at 2^24 nodes against
-     profile.stage2's spectrum (probes, node join, count join with its
-     library sort, the rest), its peak, and one closure round.
+     against 3 x 2^20 queries; K7's table grown as the closure grows its
+     store (appends inside the padded extent, filling it exactly,
+     crossing it, full at the first build, repeated rows, sentinel
+     queries), every step against join2_plain on the padded rows; K8 at
+     k = 1 and those k in both modes with padding rows; then both at their
+     real shapes, timed as phase 14 times K5 beside the bound and the
+     plain version: profile.stage2's 2^24 node k-mers (K8 graph mode, K7
+     with their 8 x 2^24 successors) and phase 7's padded store
+     (12,232,221 nodes, sentinel pad to 2^24: K8 closure mode, K7 with the
+     16 x 2^24 probes of closure round 1), K7 also as a build and a probe
+     apart; K7 at two later closure rounds (5,000 and
+     50,000 phantoms appended, the probes of a frontier padded to 2^14
+     and 2^22) and the graph's probe of phase 7's store with the
+     closure's table; and the split of one build_oriented_graph call at
+     2^24 nodes against profile.stage2's spectrum (probes, node join,
+     count join with its library sort, the rest), its peak, and one
+     closure round.
 
 ``python3 chip_smoke.py --nccl-processes N`` runs phases 0, 1 and 11a
 alone at N processes x 1 shard over NCCL, a card each (N cards).
@@ -191,8 +204,11 @@ summed over the processes of the multi-process path (mp_launches: 11a for
 K1 and K5, 11b for K2, K3, K6, K7 and K8), launches in the bench
 (bench_launches, phase 13), times (K5's at profile.hot's shape, genome_*
 at phase 7's; K6's at phase 7's, stage2_* at the bench's; K7's and K8's at
-the graph shape of phase 16, closure_* at its closure shape; K5-K8's ms is
-device time, wrapper_ms a wrapper call's), and each
+the graph shape of phase 16, closure_* at its closure shape, K7's later_*
+at its later closure round of a 2^14 frontier (an append and a probe),
+*_build_ms and *_probe_ms its two parts and main_graph_probe_ms the
+graph's probe of phase 7's store; K5-K8's ms is device time, wrapper_ms
+a wrapper call's), and each
 kernel's bound, the least time the card could
 take, computed from this run's shapes and results: the larger of the
 bytes moved (each input read once, the live result written once) over
@@ -1052,6 +1068,97 @@ def k7_compare(name, thi, tlo, qhi, qlo) -> int:
     return int((got >= 0).sum())
 
 
+def k7_growth(seed: int = 71):
+    """(name, hi0, lo0, appends, q_hi, q_lo) numpy uint64 cases of a node
+    table grown as the phantom closure grows its padded store
+    (``contiger._grow``): hi0/lo0 the real rows of the first build, then
+    appends [(hi, lo), ...]: inside the padded extent; filling it exactly
+    (no pad row left: a sentinel query answers -1), then crossing it;
+    crossing it at once; a store that fills its extent at the first build;
+    appended rows that repeat earlier rows and each other.  The queries
+    hold rows of every step, absent pairs and the sentinel."""
+    rng = np.random.default_rng(seed)
+
+    def grown(name, k, n0, sizes, n_rep):
+        hi, lo = _rand_kmers(rng, n0 + sum(sizes), k)
+        apps, at = [], n0
+        for m in sizes:
+            ah, al = hi[at:at + m].copy(), lo[at:at + m].copy()
+            # some rows repeat earlier rows, one repeats this append's first
+            src = rng.integers(0, at, min(n_rep, m))
+            dst = rng.integers(0, m, len(src))
+            ah[dst], al[dst] = hi[src], lo[src]
+            if m > 2:
+                ah[-1], al[-1] = ah[0], al[0]
+            hi[at:at + m], lo[at:at + m] = ah, al
+            apps.append((ah, al))
+            at += m
+        pick = rng.integers(0, at, 3 * at // 2)
+        ahi, alo = _rand_kmers(rng, at // 2, k)
+        shi, slo = _sentinels(97)
+        qhi = np.concatenate([hi[pick], ahi, shi])
+        qlo = np.concatenate([lo[pick], alo, slo])
+        o = rng.permutation(len(qhi))
+        return name, hi[:n0], lo[:n0], apps, qhi[o], qlo[o]
+
+    yield grown("appends_k47", 47, 3000, [100, 500, 1, 37], 20)
+    yield grown("fills_then_crosses_k47", 47, 1000, [20, 4, 10], 3)
+    yield grown("crosses_k21", 21, 4000, [200, 50], 10)
+    yield grown("fills_k63", 63, 10, [5, 1000, 9], 2)
+    yield grown("full_at_build_k31", 31, 1024, [3, 700], 5)
+
+
+def k7_grow(device, hi0, lo0, appends, qhi, qlo):
+    """Grow a node table on ``device`` as the closure grows its store
+    (``contiger._grow``); yields after the build and after each append
+    (rows_hi, rows_lo, table, answers): the numpy rows so far, the table
+    and its answers to the queries."""
+    from sh_assembly_tpu_torch.models import contiger
+    from sh_assembly_tpu_torch.ops import bits, node_join_cuda
+
+    def t(a):
+        return bits.from_u64_np(a, device)
+
+    q = t(qhi), t(qlo)
+    table = node_join_cuda.NodeTable()
+    table.build(*contiger._padded(t(hi0), t(lo0)), len(hi0))
+    rows_hi, rows_lo = hi0, lo0
+    yield rows_hi, rows_lo, table, table.probe(*q)
+    for ah, al in appends:
+        contiger._grow(table, t(ah), t(al), len(rows_hi))
+        rows_hi = np.concatenate([rows_hi, ah])
+        rows_lo = np.concatenate([rows_lo, al])
+        yield rows_hi, rows_lo, table, table.probe(*q)
+
+
+def k7_grow_compare(device, name, hi0, lo0, appends, qhi, qlo) -> int:
+    """One k7_growth case on the card: after every step the table's store
+    is the rows padded anew and its answers are ``join2_plain``'s on it,
+    bitwise -> the steps."""
+    import torch
+
+    from sh_assembly_tpu_torch.models import contiger
+    from sh_assembly_tpu_torch.ops import bits, kmerpack as kp
+
+    steps = 0
+    for rows_hi, rows_lo, table, got in k7_grow(device, hi0, lo0, appends,
+                                                qhi, qlo):
+        ph, pl = contiger._padded(bits.from_u64_np(rows_hi, device),
+                                  bits.from_u64_np(rows_lo, device))
+        want = kp.join2_plain(ph, pl, bits.from_u64_np(qhi, device),
+                              bits.from_u64_np(qlo, device))
+        torch.cuda.synchronize()
+        if not (torch.equal(table.hi, ph) and torch.equal(table.lo, pl)):
+            raise AssertionError(f"{name}, step {steps}: the table's store "
+                                 f"is not the padded rows")
+        if got.dtype != torch.int32 or not torch.equal(got, want):
+            raise AssertionError(
+                f"K7 table != join2_plain on {name}, step {steps}: "
+                f"{int((got != want).sum())} of {len(qhi)} answers differ")
+        steps += 1
+    return steps
+
+
 def k8_nodes(k: int, n: int, seed: int):
     """n packed k-mers as numpy uint64 (hi, lo): random ones, poly-A and
     poly-T, and (-1, -1) padding rows at the start, inside, in a run near
@@ -1224,22 +1331,11 @@ def _time_ms(fn, reps: int) -> float:
 
 
 def _queued_ms(fn, reps: int) -> float:
-    """Device milliseconds a call of fn, the host's launch path hidden: a
-    spin kernel holds the stream while reps calls queue up behind it, and
-    CUDA events time the calls back to back."""
-    import torch
+    """Device milliseconds a call of fn, the host's launch path hidden
+    (``utils.profiling.queued_ms``)."""
+    from sh_assembly_tpu_torch.utils.profiling import queued_ms
 
-    fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(100_000_000)  # ~50 ms of spinning
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
+    return queued_ms(fn, reps)
 
 
 def _compare(name, kern, plain) -> int:
@@ -1711,8 +1807,11 @@ def _launch_counters():
 
 
 def _reset_launches():
+    from sh_assembly_tpu_torch.ops import node_join_cuda
+
     for m in _launch_counters().values():
         m.LAUNCHES = 0
+    node_join_cuda.KINDS = dict.fromkeys(node_join_cuda.KINDS, 0)
 
 
 def _launches():
@@ -1795,8 +1894,9 @@ def phase7_genome():
 
     from sh_assembly_tpu_torch.io import native
     from sh_assembly_tpu_torch.models import contiger
-    from sh_assembly_tpu_torch.ops import kmerpack as kp, probe_cuda, \
-        stage_cuda
+    from sh_assembly_tpu_torch.ops import kmerpack as kp, node_join_cuda, \
+        probe_cuda, stage_cuda
+    from sh_assembly_tpu_torch.profile import node_join as prof_nj
     from sh_assembly_tpu_torch.utils import profiling
 
     print("== phase 7: reads -> contigs on a 12 Mbp genome", flush=True)
@@ -1811,23 +1911,41 @@ def phase7_genome():
     torch.cuda.reset_peak_memory_stats()
     # count calls of the torch contraction, which runs only when the native
     # one is missing or fails; of the collect staging, the probe programs
-    # and the node join; and of the plain versions of K6, K7 and K8, which
-    # the card must never run on this path
+    # and the one-shot node join; and of the plain versions of K6, K7 and
+    # K8, which the card must never run on this path; time every call into
+    # K7's library; keep the closure's inputs for the check below.  One
+    # join first loads K7's kernels (CUDA loads a module at its first
+    # launch), so that the timed calls are device work
+    t = torch.zeros(1, dtype=torch.int64, device="cuda")
+    node_join_cuda.node_join(t, t, t, t)
     _reset_launches()
-    with _spies((contiger, "contract_paths"), (contiger, "_stage_super"),
-                (stage_cuda, "stage_windows_plain"),
-                (contiger, "phantom_candidates"),
-                (contiger, "build_oriented_graph"), (kp, "join2"),
-                (kp, "join2_plain"),
-                (probe_cuda, "node_probes_plain")) as calls:
-        _, logtxt, wall = _run_cli(GENOME_FLAGS + [
-            "-i", os.path.join(d, "ReadFiles.txt"),
-            "-o", os.path.join(d, "contigs.fa"),
-            "--unitigs", os.path.join(d, "unitigs.fa"), "--device", "cuda"],
-            cli="pipeline")
+    closure_in = []
+    real_closure = contiger.close_over_phantoms
+
+    def keep_closure(*a, **kw):
+        closure_in.append(a)
+        return real_closure(*a, **kw)
+
+    contiger.close_over_phantoms = keep_closure
+    try:
+        with _spies((contiger, "contract_paths"), (contiger, "_stage_super"),
+                    (stage_cuda, "stage_windows_plain"),
+                    (contiger, "phantom_candidates"),
+                    (contiger, "build_oriented_graph"), (kp, "join2"),
+                    (kp, "join2_plain"),
+                    (probe_cuda, "node_probes_plain")) as calls, \
+                prof_nj.timed_calls() as k7_calls:
+            _, logtxt, wall = _run_cli(GENOME_FLAGS + [
+                "-i", os.path.join(d, "ReadFiles.txt"),
+                "-o", os.path.join(d, "contigs.fa"),
+                "--unitigs", os.path.join(d, "unitigs.fa"), "--device",
+                "cuda"], cli="pipeline")
+    finally:
+        contiger.close_over_phantoms = real_closure
     fallback, supers, plain, closure, graph, joins, joins_plain, \
         probes_plain = calls
     launches = _launches()
+    kinds = dict(node_join_cuda.KINDS)
     peak = torch.cuda.max_memory_allocated()
     lib = native._load()
     if lib is None or not hasattr(lib, "shc_contract") or fallback:
@@ -1860,15 +1978,27 @@ def phase7_genome():
                              "launch a _stage_super call")
     print(f"  probe programs: {closure} phantom_candidates and {graph} "
           f"build_oriented_graph calls, {launches['node_probes']} K8 "
-          f"launches, {probes_plain} calls of its plain chain; {joins} join2 "
-          f"calls, {launches['node_join']} K7 launches, {joins_plain} calls "
-          f"of join2_plain")
+          f"launches, {probes_plain} calls of its plain chain; K7 "
+          f"{launches['node_join']} launches ({kinds}), {joins} one-shot "
+          f"join2 calls, {joins_plain} calls of join2_plain")
+    # one table a Contiger run: built once (this store never fills or
+    # outgrows its padded extent), each round that found phantoms appends
+    # them, every round and the graph probe it
     if launches["node_probes"] != closure + graph or probes_plain or \
-            launches["node_join"] != joins or joins != closure + graph or \
+            graph != 1 or kinds != dict(build=1, append=closure - 1,
+                                        probe=closure + graph) or \
+            launches["node_join"] != sum(kinds.values()) or joins or \
             joins_plain:
         raise AssertionError("the probe programs did not probe through one "
-                             "K8 launch and join through one K7 launch a "
-                             "call")
+                             "K8 launch a call and one K7 table (a build, "
+                             "an append a round that found phantoms, a "
+                             "probe a round and one for the graph)")
+    torch.cuda.synchronize()
+    k7 = [(name, ints, a.elapsed_time(b)) for name, ints, a, b in k7_calls]
+    for name, ints, ms in k7:
+        print(f"    K7 {name}{tuple(ints)}: {ms:.4f} ms")
+    print(f"  K7 device time on the main path: {sum(t for *_, t in k7):.4f} "
+          f"ms in {len(k7)} calls", flush=True)
     stats = profiling.GLOBAL.stats
     appends, batches = (stats[p].calls for p in (
         "count:device append", "count:host read/pack"))
@@ -1880,7 +2010,53 @@ def phase7_genome():
     if abs(total - GENOME["genome_len"]) > 0.1 * GENOME["genome_len"]:
         raise AssertionError(f"contigs total {total} bp not within 10% of "
                              f"the {GENOME['genome_len']} bp genome")
+    k7_closure_check(closure_in[0])
     return launches
+
+
+def k7_closure_check(args) -> None:
+    """The closure and the graph probe of ``assemble_unitigs_arrays`` again
+    on the same inputs, outside the counted run: every probe of the one
+    table must equal ``join2_plain`` on that round's padded store, which
+    is the store the table holds (its real rows, then sentinel rows to
+    the JAX package's extent), bitwise."""
+    import torch
+
+    from sh_assembly_tpu_torch.models import contiger
+    from sh_assembly_tpu_torch.ops import kmerpack as kp, node_join_cuda
+
+    spec, hi, lo, k, key_bits, amin = args
+    checked = []
+    probe = node_join_cuda.NodeTable.probe
+
+    def checked_probe(self, qhi, qlo):
+        got = probe(self, qhi, qlo)
+        n, N = self.n_real, self.hi.numel()
+        pad = 1 << max((max(n, 1024) - 1).bit_length(), 10)
+        want = kp.join2_plain(self.hi, self.lo, qhi, qlo)
+        if N != pad or not bool((self.hi[n:] == -1).all()) or \
+                not bool((self.lo[n:] == -1).all()) or \
+                not torch.equal(got, want):
+            raise AssertionError(f"K7 table probe {len(checked)} ({n} real "
+                                 f"rows in {N}, {qhi.numel()} queries) is "
+                                 f"not join2_plain on the padded store")
+        checked.append((n, qhi.numel()))
+        return got
+
+    node_join_cuda.NodeTable.probe = checked_probe
+    try:
+        table = node_join_cuda.NodeTable()
+        hi, lo, _ = contiger.close_over_phantoms(spec, hi, lo, k, key_bits,
+                                                 amin, table=table)
+        contiger.build_oriented_graph(spec, table.hi, table.lo, k, key_bits,
+                                      amin, table=table)
+    finally:
+        node_join_cuda.NodeTable.probe = probe
+    del table
+    torch.cuda.empty_cache()
+    print(f"  K7 table: {len(checked)} probes (the closure's rounds and the "
+          f"graph) identical to join2_plain on their padded stores "
+          f"((real rows, queries): {checked})", flush=True)
 
 
 def phase8_k4(device):
@@ -2851,6 +3027,59 @@ def phase15_k6(device):
     return 0, timing
 
 
+def _k7_later(device, chi, clo, real, m, pad, k, kb, reps=5) -> dict:
+    """K7 at a later closure round's shape: a table built on the padded
+    store (chi, clo) with its last m real rows as pad, those m rows
+    appended, then the 16 closure probes of a frontier of them padded to
+    ``pad`` probed; append and probe timed by CUDA events behind a spin
+    kernel, a fresh table a rep, the first rep held against
+    ``join2_plain`` on the store and timing it -> dict."""
+    import torch
+
+    from sh_assembly_tpu_torch.ops import kmerpack as kp, node_join_cuda, \
+        probe_cuda
+
+    fh = torch.full((pad,), -1, dtype=torch.int64, device=device)
+    fl = fh.clone()
+    fh[:m], fl[:m] = chi[real - m:real], clo[real - m:real]
+    _, qh, ql, _ = probe_cuda.node_probes_cuda(fh, fl, k, kb, "closure")
+    qh, ql = qh.reshape(-1), ql.reshape(-1)
+    bh, bl = chi.clone(), clo.clone()
+    bh[real - m:real], bl[real - m:real] = -1, -1
+    times, plain_ms = [], None
+    for rep in range(reps + 1):
+        table = node_join_cuda.NodeTable().build(bh.clone(), bl.clone(),
+                                                 real - m)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(20_000_000)  # the host queues both calls
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        table.append(fh[:m], fl[:m], real - m)
+        ev[1].record()
+        got = table.probe(qh, ql)
+        ev[2].record()
+        torch.cuda.synchronize()
+        if rep == 0:
+            box = []
+            plain_ms = _time_ms(lambda: box.append(kp.join2_plain(
+                chi, clo, qh, ql)), 1)
+            if not (torch.equal(table.hi, chi) and torch.equal(
+                    table.lo, clo) and torch.equal(got, box.pop())):
+                raise AssertionError(f"K7 later round ({m} appended, {pad} "
+                                     f"frontier) differs from join2_plain")
+        else:
+            times.append((ev[0].elapsed_time(ev[1]),
+                          ev[1].elapsed_time(ev[2])))
+        del table, got
+    append_ms, probe_ms = sorted(times, key=sum)[len(times) // 2]
+    Q = qh.numel()
+    moved = 16 * m + 20 * Q  # the appended rows and the queries read once
+    return dict(ms=append_ms + probe_ms, append_ms=append_ms,
+                probe_ms=probe_ms, plain_ms=plain_ms, library_ms=None,
+                moved=moved, appended=m, queries=Q,
+                **bound(moved, 2 * 10 * (m + Q)))
+
+
 # K7 and K8 at their real shapes: profile.stage2's 2^24 node k-mers (k =
 # 47, key_bits 36 at its 2^28 slots), phase 7's padded store for the
 # closure (its 12,232,221 nodes, then sentinel pad rows to 2^24)
@@ -2908,15 +3137,24 @@ def phase16_k7_k8(device):
     for case in k7_cases(device):
         found += k7_compare(*case)
         n7 += 1
-        launched += case[3].numel() > 0
+        # a table built for the call (no kernel for an empty one) and probed
+        launched += (case[3].numel() > 0) * (1 + (case[1].numel() > 0))
     if node_join_cuda.LAUNCHES - before != launched:
         raise AssertionError(f"{node_join_cuda.LAUNCHES - before} K7 "
-                             f"launches for {launched} cases with queries")
+                             f"launches where {launched} were due")
     print(f"  K7: {n7} cases identical to join2_plain ({found} queries "
           f"found; a table of one pair repeated, padded stores, N and Q not "
           f"powers of two, Q = 0, N = 1, N = 0, tables in random order with "
           f"repeats and sentinels at k = {PROBE_KS}, warps of several equal "
           f"groups, 2^20 rows against 3 x 2^20 queries)")
+    steps = []
+    for name, *case in k7_growth():
+        steps.append(f"{name} {k7_grow_compare(device, name, *case)}")
+    print(f"  K7 table grown as the closure grows its store: every step "
+          f"identical to join2_plain on the padded rows ({', '.join(steps)} "
+          f"steps: appends inside the extent, filling it exactly, crossing "
+          f"it, full at the first build, appended rows repeating earlier "
+          f"ones, sentinel queries)")
     before = probe_cuda.LAUNCHES
     n8 = launched = 0
     for case in k8_cases(device):
@@ -2966,7 +3204,13 @@ def phase16_k7_k8(device):
         t7 = dict(ms=ms, wrapper_ms=wms, plain_ms=pms, library_ms=None,
                   moved=moved7, rows=N, queries=Q, found=hits,
                   **bound(moved7, 2 * 10 * (N + Q)))
-        del qh, ql
+        # its parts: a build of the table as the closure builds it (the
+        # real rows and the pad's last row) and a probe of the built table
+        real = s["closure_real"] if mode == "closure" else N
+        table = node_join_cuda.NodeTable().build(th, tl, real)
+        t7.update(build_ms=_queued_ms(lambda: table.build(th, tl, real), 10),
+                  probe_ms=_queued_ms(lambda: table.probe(qh, ql), 10))
+        del qh, ql, table
         torch.cuda.empty_cache()
         timing[mode] = dict(node_probes=t8, node_join=t7)
         for name, t in (("K8 node_probes", t8), ("K7 node_join", t7)):
@@ -2977,6 +3221,36 @@ def phase16_k7_k8(device):
                   f"{t['wrapper_ms']:.4f} ms), plain {t['plain_ms']:.3f} ms, "
                   f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
                   f"{t['moved'] / 1e9:.3f} GB)", flush=True)
+        print(f"    K7 {mode}: a build {t7['build_ms']:.4f} ms, a probe of "
+              f"the built table {t7['probe_ms']:.4f} ms", flush=True)
+
+    # K7 as the main path runs it after round 1: later closure rounds
+    # (phase 7's frontiers padded to 2^14 and 2^22) append to the table and
+    # probe it; the graph probes the closure's table, no build
+    R = s["closure_real"]
+    for pad, m in ((1 << 14, 5_000), (1 << 22, 50_000)):
+        t = _k7_later(device, chi, clo, R, m, pad, k, kb)
+        print(f"  K7 later closure round ({m} phantoms appended to {R - m} "
+              f"real rows, {t['queries']} queries of a frontier padded to "
+              f"{pad}): identical; device {t['ms']:.4f} ms (append "
+              f"{t['append_ms']:.4f}, probe {t['probe_ms']:.4f}), plain "
+              f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}, {t['moved'] / 1e9:.4f} GB)", flush=True)
+        if pad == 1 << 14:
+            timing["closure"]["node_join"]["later"] = t
+    _, qh, ql, _ = probe_cuda.node_probes_cuda(chi, clo, k, kb, "graph")
+    qh, ql = qh.reshape(-1), ql.reshape(-1)
+    table = node_join_cuda.NodeTable().build(chi, clo, R)
+    if not torch.equal(table.probe(qh, ql), kp.join2_plain(chi, clo, qh, ql)):
+        raise AssertionError("K7: the graph's probe of phase 7's store "
+                             "differs from join2_plain")
+    graph_probe = _queued_ms(lambda: table.probe(qh, ql), 10)
+    timing["graph"]["node_join"]["main_graph_probe_ms"] = graph_probe
+    print(f"  K7 the graph's probe of phase 7's store, the closure's table "
+          f"({R} real rows, {qh.numel()} queries): identical; device "
+          f"{graph_probe:.4f} ms", flush=True)
+    del qh, ql, table
+    torch.cuda.empty_cache()
 
     # the split of one build_oriented_graph call (and one closure round) at
     # phase 7's shape, against profile.stage2's spectrum
@@ -3137,7 +3411,9 @@ def main() -> int:
                                "bound_by", "library_ms")},
         **{f"stage2_{k}": st2[k] for k in ("ms", "wrapper_ms", "plain_ms",
                                            "bound_ms")}}
-    # K7 and K8: profile.stage2's graph shape, the closure's round 1 beside it
+    # K7 and K8: profile.stage2's graph shape, the closure's round 1 beside
+    # it; K7 also at a later closure round (an append and a probe), its
+    # build and probe apart, and the graph's probe of phase 7's store
     for name in ("node_join", "node_probes"):
         g, c = timing16["graph"][name], timing16["closure"][name]
         timing[name] = {
@@ -3145,6 +3421,14 @@ def main() -> int:
                                  "bound_by", "library_ms")},
             **{f"closure_{k}": c[k] for k in ("ms", "wrapper_ms", "plain_ms",
                                               "bound_ms")}}
+    j7 = {w: timing16[w]["node_join"] for w in ("graph", "closure")}
+    later = j7["closure"]["later"]
+    timing["node_join"].update(
+        **{f"{w}_{k}": j7[w][k] for w in j7 for k in ("build_ms",
+                                                       "probe_ms")},
+        main_graph_probe_ms=j7["graph"]["main_graph_probe_ms"],
+        **{f"later_{k}": later[k] for k in ("ms", "append_ms", "probe_ms",
+                                            "plain_ms", "bound_ms")})
     ops = "sh_assembly_tpu/ops/"
     pipeline, prof = "phase 7 (cli.pipeline)", \
         "phase 8 (profile.blocksort.main); the main path: 0"

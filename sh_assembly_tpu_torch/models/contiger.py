@@ -13,11 +13,14 @@ and the same output (``unitigs.fa`` byte-identical):
   B. phantom closure: successor and suffix-sibling probes whose hash key
      is counted but whose k-mer is not a node join the node set, round by
      round over the frontier, to the fixpoint (the probes through kernel
-     K8, their node join through K7, their counts through K2).
+     K8, their counts through K2, their node join through K7: one table,
+     ``ops/node_join_cuda.NodeTable``, built from round 1's padded store,
+     each round's phantoms appended to it).
   C. edge probing: the 8 successor probes of both orientations of every
-     node (kernel K8, ``ops/probe_cuda``; one node join, kernel K7 behind
-     ``kmerpack.join2``, for the successor indices, one K2 count join for
-     the 9N counts) give out-degrees and contractible chain edges.
+     node (kernel K8, ``ops/probe_cuda``; a probe of the closure's K7
+     table, whose store the graph's is, for the successor indices, one K2
+     count join for the 9N counts) give out-degrees and contractible
+     chain edges.
   D. contraction on the host (``cpp/contract.cpp``) and the vectorised
      host assembly: sequences, medians, links, the solid-seed component
      filter, FASTA.  Copied from the JAX package; every device array
@@ -45,7 +48,7 @@ import torch
 from .. import config as cfg
 from ..io import fastq
 from ..ops import bits, kmerpack as kp, kmerpack_np as kpn, merge128_cuda, \
-    packio, probe_cuda, spectrum as sp, stage_cuda
+    node_join_cuda, packio, probe_cuda, spectrum as sp, stage_cuda
 from ..utils import dna, profiling
 from ..utils.logging import log
 
@@ -269,7 +272,8 @@ def collect_nodes(spec: sp.Spectrum, batches: Iterable[fastq.Batch], k: int,
 # --------------------------------------------------------------------------
 
 def phantom_candidates(spec: sp.Spectrum, store_hi, store_lo, hi, lo,
-                       k: int, key_bits: int, abundance_min: int):
+                       k: int, key_bits: int, abundance_min: int,
+                       table: node_join_cuda.NodeTable | None = None):
     """Successor and sibling k-mers of the FRONTIER (hi, lo) that pass the
     count filter but are not in the node store (store_hi, store_lo).
 
@@ -280,20 +284,25 @@ def phantom_candidates(spec: sp.Spectrum, store_hi, store_lo, hi, lo,
     Returns (ph_hi[F], ph_lo[F], n_new, n_found): the distinct phantoms in
     sorted order, truncated and sentinel-padded to the frontier size F;
     n_new = min(n_found, F) and n_found the true total (host ints), so the
-    caller can detect truncation.
+    caller can detect truncation.  ``table``: a node table (kernel K7)
+    that holds the store (store_hi, store_lo) itself, probed in place of a
+    one-shot ``join2``.
     """
     N = hi.shape[0]
     dev = hi.device
     valid = ~((hi == SENT) & (lo == SENT))
-    # the 16 probes a node (kernel K8 on CUDA tensors), one node join for
-    # their indices (K7) and one K2 count join for their keys
+    # the 16 probes a node (kernel K8 on CUDA tensors), one K2 count join
+    # for their keys and one node join for their indices (K7); the count
+    # join first: its sort is the closure's peak of device memory, which
+    # the join's answers need not add to
     keys, probe_hi, probe_lo, _ = probe_cuda.node_probes(
         hi, lo, k, key_bits, "closure")
     P = keys.shape[0]  # 16 probes per node
     all_hi, all_lo = probe_hi.reshape(-1), probe_lo.reshape(-1)
-    all_j = kp.join2(store_hi, store_lo, all_hi, all_lo).reshape(P, N)
     counts = sp.query_join_auto(spec, keys, key_bits).reshape(P, N)
     del keys
+    all_j = _node_join(store_hi, store_lo, all_hi, all_lo, table) \
+        .reshape(P, N)
     ph = ((counts >= abundance_min) & (all_j < 0) & valid[None, :]) \
         .reshape(-1)
     # a probe k-mer is never the sentinel (its low bits are zero for
@@ -313,6 +322,40 @@ def phantom_candidates(spec: sp.Spectrum, store_hi, store_lo, hi, lo,
     return oh, ol, n_new, n_found
 
 
+def _node_join(store_hi, store_lo, qhi, qlo, table):
+    """The queries' store rows: a probe of ``table``, which must hold the
+    store itself, or a one-shot ``join2``."""
+    if table is None:
+        return kp.join2(store_hi, store_lo, qhi, qlo)
+    if not table.holds(store_hi, store_lo):
+        raise ValueError("the node table holds another store")
+    return table.probe(qhi, qlo)
+
+
+def _padded(h, l, at_least=1024):
+    """(h, l) padded with sentinel rows to the JAX package's power-of-two
+    extent (at least ``at_least`` and 2^10 rows)."""
+    n = h.shape[0]
+    Np = 1 << max(int(np.ceil(np.log2(max(n, at_least)))), 10)
+    hp = torch.full((Np,), SENT, dtype=torch.int64, device=h.device)
+    lp = torch.full((Np,), SENT, dtype=torch.int64, device=h.device)
+    hp[:n] = h
+    lp[:n] = l
+    return hp, lp
+
+
+def _grow(table: node_join_cuda.NodeTable, hi, lo, n: int) -> None:
+    """Put rows (hi, lo) after the n real rows of the table's padded store:
+    appended in place of pad rows while one pad row is left to answer the
+    sentinel, else padded anew to the extent of n + m rows and built."""
+    if n + hi.shape[0] < table.hi.shape[0]:
+        table.append(hi, lo, n)
+    else:
+        table.build(*_padded(torch.cat([table.hi[:n], hi]),
+                             torch.cat([table.lo[:n], lo])),
+                    n + hi.shape[0])
+
+
 def _frontier_pad(n_frontier: int, store_pad: int) -> int:
     """Frontier pad extent: the smallest rung of a fixed ladder that holds
     the frontier, capped at the store's own pad extent.  Kept exactly as
@@ -326,46 +369,48 @@ def _frontier_pad(n_frontier: int, store_pad: int) -> int:
 
 
 def close_over_phantoms(spec: sp.Spectrum, hi, lo, k: int, key_bits: int,
-                        abundance_min: int, max_rounds: int = 8):
+                        abundance_min: int, max_rounds: int = 8,
+                        table: node_join_cuda.NodeTable | None = None):
     """Close the node set (hi, lo tensors) over phantom successors (see
     phantom_candidates).  Rounds after the first probe only the frontier
     (last round's additions).
+
+    Each round probes the store padded as the JAX package pads it.  One
+    node table (kernel K7) is built from round 1's padded store; a later
+    round inserts only the phantoms appended in place of pad rows, and
+    pads and builds anew only when the store fills or outgrows its padded
+    extent (no pad row would be left to answer the sentinel).  Pass an
+    empty ``table`` to keep it: it then holds the last round's padded
+    store, which is the graph's (``assemble_unitigs_arrays``).
 
     Returns (hi, lo, n_phantoms); appended phantoms keep the closure's
     discovery order.  Raises RuntimeError when the closure has not
     converged after max_rounds rounds (the node set would silently diverge
     from the reference candidate semantics; raise key_bits).
     """
-    dev = hi.device
-
-    def padded(h, l, at_least=1024):
-        n = h.shape[0]
-        Np = 1 << max(int(np.ceil(np.log2(max(n, at_least)))), 10)
-        hp = torch.full((Np,), SENT, dtype=torch.int64, device=dev)
-        lp = torch.full((Np,), SENT, dtype=torch.int64, device=dev)
-        hp[:n] = h
-        lp[:n] = l
-        return hp, lp
-
+    table = node_join_cuda.NodeTable() if table is None else table
+    n = hi.shape[0]
+    table.build(*_padded(hi, lo), n)
     total_new = 0
     f_hi, f_lo = hi, lo  # round-1 frontier = everything
     for _ in range(max_rounds):
-        sh, sl = padded(hi, lo)
-        fh, fl = padded(f_hi, f_lo, _frontier_pad(f_hi.shape[0], sh.shape[0]))
+        fh, fl = _padded(f_hi, f_lo,
+                         _frontier_pad(f_hi.shape[0], table.hi.shape[0]))
         ph_h, ph_l, n_new, n_found = phantom_candidates(
-            spec, sh, sl, fh, fl, k, key_bits, abundance_min)
-        del sh, sl, fh, fl
+            spec, table.hi, table.lo, fh, fl, k, key_bits, abundance_min,
+            table)
+        del fh, fl
         if n_new == 0:
             break
         f_hi, f_lo = ph_h[:n_new], ph_l[:n_new]
-        hi = torch.cat([hi, f_hi])
-        lo = torch.cat([lo, f_lo])
+        _grow(table, f_hi, f_lo, n)
+        n += n_new
         total_new += n_new
         if n_found > n_new:
             # output was truncated to the frontier extent: re-probe with
             # the full store as the frontier so the dropped candidates are
             # rediscovered (they are still absent from the store)
-            f_hi, f_lo = hi, lo
+            f_hi, f_lo = table.hi[:n], table.lo[:n]
     else:
         raise RuntimeError(
             f"phantom closure not converged after {max_rounds} rounds "
@@ -376,12 +421,15 @@ def close_over_phantoms(spec: sp.Spectrum, hi, lo, k: int, key_bits: int,
     if total_new:
         log(f"[Contiger] {total_new} phantom hash-collision nodes added "
             f"(reference candidate semantics)")
-    return hi, lo, total_new
+    return table.hi[:n], table.lo[:n], total_new
 
 
 def build_oriented_graph(spec: sp.Spectrum, hi, lo, k: int, key_bits: int,
-                         abundance_min: int):
-    """Probe successors for both orientations of every node.
+                         abundance_min: int,
+                         table: node_join_cuda.NodeTable | None = None):
+    """Probe successors for both orientations of every node.  ``table``: a
+    node table (kernel K7) that holds (hi, lo) itself, probed in place of
+    a one-shot ``join2``.
 
     Returns (nsucc[2N], chain_next[2N], node_counts[N]) int32 tensors.
     Oriented index a = 2*i + o with o=0 the canonical orientation, o=1 its
@@ -399,8 +447,8 @@ def build_oriented_graph(spec: sp.Spectrum, hi, lo, k: int, key_bits: int,
     # count join all 9N counts
     keys, succ_hi, succ_lo, succ_flip = probe_cuda.node_probes(
         hi, lo, k, key_bits, "graph")
-    all_j = kp.join2(hi, lo, succ_hi.reshape(-1),
-                     succ_lo.reshape(-1)).reshape(8, N)
+    all_j = _node_join(hi, lo, succ_hi.reshape(-1), succ_lo.reshape(-1),
+                       table).reshape(8, N)
     del succ_hi, succ_lo
     all_counts = sp.query_join_auto(spec, keys, key_bits).reshape(9, N)
     del keys
@@ -747,25 +795,27 @@ def assemble_unitigs_arrays(
 
     # phantom hash-collision nodes (reference candidate semantics; see
     # phantom_candidates)
+    table = node_join_cuda.NodeTable()
     with profiling.phase("contiger:phantom closure"):
         hi, lo, _ = close_over_phantoms(
-            spec, hi, lo, k, key_bits, params.kmer_abundance_min)
+            spec, hi, lo, k, key_bits, params.kmer_abundance_min,
+            table=table)
     N = hi.shape[0]
     is_seed = None
-    # pad to the JAX package's power-of-two extent (sentinel nodes are
-    # masked inside); the extent fixes the oriented node numbering
-    Np = 1 << max(int(np.ceil(np.log2(max(N, 1024)))), 10)
-    hi_pad = torch.full((Np,), SENT, dtype=torch.int64, device=hi.device)
-    lo_pad = torch.full((Np,), SENT, dtype=torch.int64, device=hi.device)
-    hi_pad[:N] = hi
-    lo_pad[:N] = lo
+    # the closure's last padded store: the JAX package's power-of-two
+    # extent (sentinel nodes are masked inside), which fixes the oriented
+    # node numbering; the graph probes the closure's table of it
+    hi_pad, lo_pad = table.hi, table.lo
+    Np = hi_pad.shape[0]
     if seed is not None:
         # phantoms (appended after the collected nodes) are never seeds
         is_seed = np.zeros(Np, bool)
         is_seed[:len(seed)] = seed.cpu().numpy() != 0
     with profiling.phase("contiger:probe graph"):
         nsucc, chain_next, node_counts = build_oriented_graph(
-            spec, hi_pad, lo_pad, k, key_bits, params.kmer_abundance_min)
+            spec, hi_pad, lo_pad, k, key_bits, params.kmer_abundance_min,
+            table=table)
+    del table
     real = np.zeros(Np, bool)
     real[:N] = True
     return finalize_unitigs(hi_pad, lo_pad, real, node_counts, chain_next,

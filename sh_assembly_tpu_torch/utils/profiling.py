@@ -60,6 +60,23 @@ def median_ms(fn, reps: int, device) -> float:
     return statistics.median(times)
 
 
+def queued_ms(fn, reps: int) -> float:
+    """Device milliseconds a call of ``fn`` on the current CUDA device, the
+    host's launch path hidden: a spin kernel holds the stream while reps
+    calls queue up behind it, and CUDA events time them back to back."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)  # ~50 ms of spinning
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 @dataclass
 class PhaseTimer:
     """Accumulates wall-clock per named phase.  Not thread-safe (the

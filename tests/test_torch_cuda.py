@@ -509,12 +509,31 @@ def test_k7_matches_plain(gpu):
     for case in chip_smoke.k7_cases(gpu):
         before = node_join_cuda.LAUNCHES
         chip_smoke.k7_compare(*case)
-        assert node_join_cuda.LAUNCHES == before + (case[3].numel() > 0)
+        # a table built for the call (no kernel when empty) and probed
+        assert node_join_cuda.LAUNCHES == before + (
+            case[3].numel() > 0) * (1 + (case[1].numel() > 0))
         names.append(case[0])
     for want in ("all_duplicates", "sentinel_pads", "not_pow2", "q0", "n1",
                  "n0", "random_order_k21", "random_order_k63", "warp_groups",
                  "pads_2^20"):
         assert want in names
+
+
+def test_k7_table_grows_like_plain(gpu):
+    """A node table built once and grown as the closure grows its store
+    (chip_smoke.k7_growth: appends inside the padded extent, filling it
+    exactly, crossing it, full at the first build, repeated rows, sentinel
+    queries) answers as join2_plain on the padded rows after every step;
+    an append launches one insert, a crossing or a full extent a build."""
+    steps = 0
+    for name, *case in chip_smoke.k7_growth():
+        before = dict(node_join_cuda.KINDS)
+        n = chip_smoke.k7_grow_compare(gpu, name, *case)
+        kinds = {k: v - before[k] for k, v in node_join_cuda.KINDS.items()}
+        assert kinds["probe"] == n and kinds["build"] >= 1
+        assert kinds["build"] + kinds["append"] == n
+        steps += n
+    assert steps == 19
 
 
 def test_k8_matches_plain(gpu):
@@ -551,8 +570,9 @@ def test_k7_k8_refuse_what_the_kernels_do_not_take(gpu):
 
 def test_probe_programs_cuda_match_cpu(gpu):
     """build_oriented_graph and a closure round (phantom_candidates) on the
-    card give the CPU's tensors, each call through one launch of K8 and
-    one of K7 and no call of their plain versions."""
+    card give the CPU's tensors, each call through one launch of K8 and a
+    one-shot K7 (a build and a probe) and no call of their plain
+    versions."""
     rng = np.random.default_rng(13)
     genome = rng.integers(0, 4, size=6000).astype(np.uint8)
     k, kb = 47, 20  # dense keys: phantoms exist
@@ -582,7 +602,7 @@ def test_probe_programs_cuda_match_cpu(gpu):
         out[str(dev)] = ([t.cpu() for t in graph + ph[:2]], ph[2:],
                          tuple(m.LAUNCHES - b for m, b in zip(mods, before)))
     (tc, nc, lc), (tg, ng, lg) = out["cpu"], out[str(gpu)]
-    assert lc == (0, 0) and lg == (2, 2)
+    assert lc == (0, 0) and lg == (4, 2)
     assert nc == ng and nc[0] > 0
     for a, b in zip(tc, tg):
         assert torch.equal(a, b)

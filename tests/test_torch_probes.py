@@ -142,10 +142,11 @@ def test_node_probes_refuse_what_the_kernel_does_not_take():
 
 @pytest.fixture
 def spied(monkeypatch):
-    """Counts of the calls of join2, node_probes (by mode) and their plain
-    versions, and the kernels' launches before the test."""
+    """Counts of the calls of join2, node_probes (by mode), their plain
+    versions and a node table's build, append and probe, and the kernels'
+    launches before the test."""
     calls = {"join2": 0, "join2_plain": 0, "node_probes_plain": 0,
-             "graph": 0, "closure": 0}
+             "graph": 0, "closure": 0, "build": 0, "append": 0, "probe": 0}
 
     def spy(mod, name, key=None):
         fn = getattr(mod, name)
@@ -159,6 +160,8 @@ def spied(monkeypatch):
     spy(kp, "join2_plain")
     spy(probe_cuda, "node_probes", lambda *a: a[4])
     spy(probe_cuda, "node_probes_plain")
+    for kind in ("build", "append", "probe"):
+        spy(node_join_cuda.NodeTable, kind)
     return calls, (node_join_cuda.LAUNCHES, probe_cuda.LAUNCHES)
 
 
@@ -172,13 +175,16 @@ def test_cpu_tensors_take_the_plain_versions(spied):
                         probe_cuda.node_probes_plain(h, l, 31, 30, mode)):
             assert (a is None and b is None) or torch.equal(a, b)
     assert calls == {"join2": 1, "join2_plain": 2, "node_probes_plain": 4,
-                     "graph": 1, "closure": 1}
+                     "graph": 1, "closure": 1, "build": 0, "append": 0,
+                     "probe": 0}
     assert (node_join_cuda.LAUNCHES, probe_cuda.LAUNCHES) == launches
 
 
 def test_probe_programs_reach_node_probes_and_join2(spied):
     """phantom_candidates probes in closure mode and build_oriented_graph in
-    graph mode, each through one node_probes and one join2 call."""
+    graph mode, each through one node_probes call and one node join: a
+    one-shot join2 call without a table, one probe of the table they are
+    given (built once for both, as the Contiger shares it)."""
     calls, launches = spied
     rng = np.random.default_rng(3)
     genome = rng.integers(0, 4, 3000).astype(np.uint8)
@@ -193,11 +199,17 @@ def test_probe_programs_reach_node_probes_and_join2(spied):
     pad = torch.full((2048,), -1, dtype=torch.int64)
     h, l = pad.clone(), pad.clone()
     h[:2000], l[:2000] = hp, lp
-    contiger.phantom_candidates(spec, h, l, h, l, 31, 22, 2)
+    one_shot = contiger.phantom_candidates(spec, h, l, h, l, 31, 22, 2)
     assert (calls["closure"], calls["graph"], calls["join2"]) == (1, 0, 1)
-    contiger.build_oriented_graph(spec, h, l, 31, 22, 2)
-    assert (calls["closure"], calls["graph"], calls["join2"]) == (1, 1, 2)
-    assert calls["join2_plain"] == 2 and calls["node_probes_plain"] == 2
+    table = node_join_cuda.NodeTable().build(h, l, 2000)
+    got = contiger.phantom_candidates(spec, h, l, h, l, 31, 22, 2, table)
+    contiger.build_oriented_graph(spec, h, l, 31, 22, 2, table=table)
+    assert (calls["closure"], calls["graph"], calls["join2"]) == (2, 1, 1)
+    assert (calls["build"], calls["append"], calls["probe"]) == (1, 0, 2)
+    for a, b in zip(got, one_shot):
+        assert a == b if isinstance(a, int) else torch.equal(a, b)
+    # the table's plain route is join2_plain, as the one-shot's is
+    assert calls["join2_plain"] == 3 and calls["node_probes_plain"] == 3
     assert (node_join_cuda.LAUNCHES, probe_cuda.LAUNCHES) == launches
 
 
@@ -220,7 +232,9 @@ def test_mesh_contiger_reaches_node_probes_and_join2(spied):
         cfg.ContigerParams(k=k, kmer_abundance_min=2))
     assert au.n > 1
     assert calls["closure"] >= n and calls["graph"] == n
+    # the mesh joins through one-shot join2 round trips, no kept table
     assert calls["join2"] >= calls["closure"] + calls["graph"]
+    assert calls["build"] == calls["probe"] == 0
     assert calls["node_probes_plain"] == calls["closure"] + calls["graph"]
     assert (node_join_cuda.LAUNCHES, probe_cuda.LAUNCHES) == launches
 
