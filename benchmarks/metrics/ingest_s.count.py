@@ -1,0 +1,11 @@
+"""ingest_s.count: host ingest (io/native.py and the cpp/ reader), the phase
+`count:host read/pack`, seconds a job (the program's own phase times,
+utils/profiling.GLOBAL.stats, read after each job)."""
+
+PHASES = ("count:host read/pack",)
+
+
+def read(ctx):
+    seen = [sum(p[n] for n in PHASES if n in p) for p in ctx["phases"]
+            if any(n in p for n in PHASES)]
+    return sum(seen) / len(ctx["phases"]) if seen else None
