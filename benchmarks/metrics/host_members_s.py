@@ -1,0 +1,12 @@
+"""host_members_s: the host assembly's member mask and lexsort by (head, dist)
+(models/contiger._finalize_host); the span `contiger:host assembly.members`,
+seconds a job (the program's own phase times, utils/profiling.GLOBAL.stats,
+read after each job; None where the span never ran)."""
+
+PHASES = ("contiger:host assembly.members",)
+
+
+def read(ctx):
+    seen = [sum(p[n] for n in PHASES if n in p) for p in ctx["phases"]
+            if any(n in p for n in PHASES)]
+    return sum(seen) / len(ctx["phases"]) if seen else None

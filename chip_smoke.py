@@ -1538,8 +1538,11 @@ def phase4_main():
         "-i", os.path.join(d, "ReadFiles.txt"), "-o", ser, "--device", "cuda"])
     launches, k5 = mc.LAUNCHES, ha.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
+    # the main thread's top-level phases (children lie inside their
+    # parents; the reader's thread runs beside them)
     count_s = sum(s.seconds for n, s in profiling.GLOBAL.stats.items()
-                  if n != "count:serialize")
+                  if s.parent is None
+                  and n not in ("count:serialize", "count:reader next"))
     appends = profiling.GLOBAL.stats["count:device append"].calls
     meta = _ser_meta(ser)
     print(f"  {stats}; K1 launches {launches}; K5 launches {k5}, "

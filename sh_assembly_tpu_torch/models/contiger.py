@@ -217,7 +217,13 @@ def collect_nodes(spec: sp.Spectrum, batches: Iterable[fastq.Batch], k: int,
         stack_p, stack_m, stack_l, stack_s = [], [], [], []
         rows = 0
 
-    for b in batches:
+    it = iter(batches)
+    while True:
+        # the wait on the stream (in the pipeline, the FASTQ's decode)
+        with profiling.phase("contiger:collect nodes.wait", sync=False):
+            b = next(it, None)
+        if b is None:
+            break
         if isinstance(b, fastq.PackedBatch):
             Lp_b = b.row_len
             p_, m_ = b.packed, b.nmask
@@ -827,7 +833,7 @@ def finalize_unitigs(
     lo: torch.Tensor,
     real: np.ndarray,
     node_counts: torch.Tensor,
-    chain_next: torch.Tensor,
+    chain_next: torch.Tensor | np.ndarray,
     params: cfg.ContigerParams,
     is_seed: np.ndarray | None = None,
 ) -> ArrayUnitigs:
@@ -843,12 +849,18 @@ def finalize_unitigs(
     """
     k = params.k
     with profiling.phase("contiger:contract"):
-        head, dist, is_tail = contract_paths_host(chain_next)
-        hi_np = bits.to_u64_np(hi)
-        lo_np = bits.to_u64_np(lo)
-        rhi_np, rlo_np = kpn.revcomp_packed(hi_np, lo_np, k)
-        keep = _path_summary_np(head, is_tail, hi_np, lo_np,
-                                rhi_np, rlo_np)
+        with profiling.phase("contiger:contract.d2h", sync=False):
+            if isinstance(chain_next, torch.Tensor):
+                chain_next = chain_next.cpu().numpy()
+            hi_np = bits.to_u64_np(hi)
+            lo_np = bits.to_u64_np(lo)
+        with profiling.phase("contiger:contract.walk", sync=False):
+            head, dist, is_tail = contract_paths_host(chain_next)
+        with profiling.phase("contiger:contract.revcomp", sync=False):
+            rhi_np, rlo_np = kpn.revcomp_packed(hi_np, lo_np, k)
+        with profiling.phase("contiger:contract.keep rule", sync=False):
+            keep = _path_summary_np(head, is_tail, hi_np, lo_np,
+                                    rhi_np, rlo_np)
     with profiling.phase("contiger:host assembly"):
         return _finalize_host(hi_np, lo_np, rhi_np, rlo_np, real,
                               node_counts.cpu().numpy(), head, dist, keep,
@@ -882,204 +894,212 @@ def _finalize_host(hi, lo, rhi, rlo, real, node_counts,
     Np = hi.shape[0]
 
     # ---- members of kept oriented paths, sorted by (head, dist) ----------
-    a = np.arange(2 * Np, dtype=np.int64)
-    keep_np = np.asarray(keep)
-    head_np = np.asarray(head)
-    member = keep_np[head_np]
-    member &= real[a >> 1]  # drop sentinel padding nodes
-    heads = head_np[member].astype(np.int64)
-    dists = np.asarray(dist)[member]
-    ai = a[member]
-    node_i = ai >> 1
-    orient = ai & 1
-    if len(heads) == 0:
-        return ArrayUnitigs.empty(k)
+    with profiling.phase("contiger:host assembly.members", sync=False):
+        a = np.arange(2 * Np, dtype=np.int64)
+        keep_np = np.asarray(keep)
+        head_np = np.asarray(head)
+        member = keep_np[head_np]
+        member &= real[a >> 1]  # drop sentinel padding nodes
+        heads = head_np[member].astype(np.int64)
+        dists = np.asarray(dist)[member]
+        ai = a[member]
+        node_i = ai >> 1
+        orient = ai & 1
+        if len(heads) == 0:
+            return ArrayUnitigs.empty(k)
 
-    order = np.lexsort((dists, heads))
-    heads, node_i, orient, ai = (
-        heads[order], node_i[order], orient[order], ai[order])
+        order = np.lexsort((dists, heads))
+        heads, node_i, orient, ai = (
+            heads[order], node_i[order], orient[order], ai[order])
 
-    counts_np = np.asarray(node_counts).astype(np.int64)
-    hi_np, lo_np = np.asarray(hi), np.asarray(lo)
-    rhi_np, rlo_np = np.asarray(rhi), np.asarray(rlo)
+        counts_np = np.asarray(node_counts).astype(np.int64)
+        hi_np, lo_np = np.asarray(hi), np.asarray(lo)
+        rhi_np, rlo_np = np.asarray(rhi), np.asarray(rlo)
 
-    # oriented packed kmers + per-member data
-    ohi = np.where(orient == 0, hi_np[node_i], rhi_np[node_i])
-    olo = np.where(orient == 0, lo_np[node_i], rlo_np[node_i])
-    lastb = kpn.last_base(ohi, olo, k)
-    counts_mem = counts_np[node_i]
+        # oriented packed kmers + per-member data
+        ohi = np.where(orient == 0, hi_np[node_i], rhi_np[node_i])
+        olo = np.where(orient == 0, lo_np[node_i], rlo_np[node_i])
+        lastb = kpn.last_base(ohi, olo, k)
+        counts_mem = counts_np[node_i]
 
-    starts = np.flatnonzero(np.r_[True, heads[1:] != heads[:-1]]).astype(np.int64)
-    lens = np.diff(np.r_[starts, len(heads)])
-    P = len(starts)
-    tail_pos = starts + lens - 1
+        starts = np.flatnonzero(
+            np.r_[True, heads[1:] != heads[:-1]]).astype(np.int64)
+        lens = np.diff(np.r_[starts, len(heads)])
+        P = len(starts)
+        tail_pos = starts + lens - 1
 
     # ---- mirror dedup on oriented indices --------------------------------
-    # every unitig appears as two mirror paths; the device keep-rule (head
-    # kmer <= mirror head kmer) leaves both only when those kmers are
-    # EQUAL, which happens exactly when the unitig is palindromic-headed.
-    # The unordered pair {head, flip(tail)} identifies a mirror pair
-    # exactly, so dedup on it is collision-free.
-    head_idx = heads[starts]
-    mirror_idx = ai[tail_pos] ^ 1
-    pk_lo = np.minimum(head_idx, mirror_idx).astype(np.uint64)
-    pk_hi = np.maximum(head_idx, mirror_idx).astype(np.uint64)
-    comb = (pk_lo << np.uint64(32)) | pk_hi
-    _, first_occ = np.unique(comb, return_index=True)
-    sel = np.zeros(P, bool)
-    sel[first_occ] = True
+    with profiling.phase("contiger:host assembly.dedup", sync=False):
+        # every unitig appears as two mirror paths; the device keep-rule (head
+        # kmer <= mirror head kmer) leaves both only when those kmers are
+        # EQUAL, which happens exactly when the unitig is palindromic-headed.
+        # The unordered pair {head, flip(tail)} identifies a mirror pair
+        # exactly, so dedup on it is collision-free.
+        head_idx = heads[starts]
+        mirror_idx = ai[tail_pos] ^ 1
+        pk_lo = np.minimum(head_idx, mirror_idx).astype(np.uint64)
+        pk_hi = np.maximum(head_idx, mirror_idx).astype(np.uint64)
+        comb = (pk_lo << np.uint64(32)) | pk_hi
+        _, first_occ = np.unique(comb, return_index=True)
+        sel = np.zeros(P, bool)
+        sel[first_occ] = True
 
     # ---- per-path medians (reference median, Utility.cpp:27-39) ----------
-    seg_id = np.repeat(np.arange(P, dtype=np.int64), lens)
-    ordm = np.lexsort((counts_mem, seg_id))
-    sc = counts_mem[ordm]
-    mid = starts + lens // 2
-    med = np.where(lens % 2 == 1, sc[mid],
-                   (sc[np.maximum(mid - 1, 0)] + sc[mid]) // 2)
-    # mean k-mer abundance (gatb RCTC coverage; see Unitig.mean_abundance)
-    meanf = np.add.reduceat(counts_mem, starts).astype(np.float64) / lens
+    with profiling.phase("contiger:host assembly.medians", sync=False):
+        seg_id = np.repeat(np.arange(P, dtype=np.int64), lens)
+        ordm = np.lexsort((counts_mem, seg_id))
+        sc = counts_mem[ordm]
+        mid = starts + lens // 2
+        med = np.where(lens % 2 == 1, sc[mid],
+                       (sc[np.maximum(mid - 1, 0)] + sc[mid]) // 2)
+        # mean k-mer abundance (gatb RCTC coverage; see Unitig.mean_abundance)
+        meanf = np.add.reduceat(counts_mem, starts).astype(np.float64) / lens
 
-    # ---- solid seed flag per path (contig_assembly.cpp:2082) -------------
-    # the reference only STARTS traversal from read-MIDDLE k-mers whose
-    # count lies in [-x, -X] (contig_assembly.cpp:2068-2082); components
-    # unreachable from such a seed are never discovered.  When middle-kmer
-    # metadata is unavailable (hand-built batches), fall back to "any solid
-    # k-mer seeds" — a superset.
-    smin = params.solid_kmer_abundance_min
-    smax = params.solid_kmer_abundance_max
-    seed_mem = (counts_mem >= smin) & (counts_mem <= smax)
-    if is_seed is not None:
-        seed_mem = seed_mem & np.asarray(is_seed)[node_i]
-    path_seed = np.add.reduceat(seed_mem.astype(np.int64), starts) > 0
+        # ---- solid seed flag per path (contig_assembly.cpp:2082) ---------
+        # the reference only STARTS traversal from read-MIDDLE k-mers whose
+        # count lies in [-x, -X] (contig_assembly.cpp:2068-2082); components
+        # unreachable from such a seed are never discovered.  When middle-kmer
+        # metadata is unavailable (hand-built batches), fall back to "any solid
+        # k-mer seeds" — a superset.
+        smin = params.solid_kmer_abundance_min
+        smax = params.solid_kmer_abundance_max
+        seed_mem = (counts_mem >= smin) & (counts_mem <= smax)
+        if is_seed is not None:
+            seed_mem = seed_mem & np.asarray(is_seed)[node_i]
+        path_seed = np.add.reduceat(seed_mem.astype(np.int64), starts) > 0
 
-    # ---- select deduped paths --------------------------------------------
-    pids = np.flatnonzero(sel)
-    P2 = len(pids)
-    fhi, flo = ohi[starts[pids]], olo[starts[pids]]  # first kmer
-    thi, tlo = ohi[tail_pos[pids]], olo[tail_pos[pids]]  # last kmer
-    lens2 = lens[pids]
-    med2 = med[pids]
-    mean2 = meanf[pids]
-    seed2 = path_seed[pids]
-    starts2 = starts[pids]
+        # ---- select deduped paths ----------------------------------------
+        pids = np.flatnonzero(sel)
+        P2 = len(pids)
+        fhi, flo = ohi[starts[pids]], olo[starts[pids]]  # first kmer
+        thi, tlo = ohi[tail_pos[pids]], olo[tail_pos[pids]]  # last kmer
+        lens2 = lens[pids]
+        med2 = med[pids]
+        mean2 = meanf[pids]
+        seed2 = path_seed[pids]
+        starts2 = starts[pids]
 
     # ---- link table: first kmer -> +(id+1), RC(last kmer) -> -(id+1) -----
-    # (track_kmer_worker, contig_assembly.cpp:956-1010).  Insertion order
-    # mirrors the dict the previous implementation used: for each id, RC
-    # then first; the LAST write wins on key collisions (palindromic
-    # unitigs collapse to the + entry).
-    rthi, rtlo = kpn.revcomp_packed(thi, tlo, k)  # == mirror head kmer
-    tab_hi = np.empty(2 * P2, np.uint64)
-    tab_lo = np.empty(2 * P2, np.uint64)
-    tab_val = np.empty(2 * P2, np.int64)
-    ids1 = np.arange(P2, dtype=np.int64) + 1
-    tab_hi[0::2], tab_lo[0::2], tab_val[0::2] = rthi, rtlo, -ids1
-    tab_hi[1::2], tab_lo[1::2], tab_val[1::2] = fhi, flo, ids1
-    ordt = np.lexsort((tab_lo, tab_hi))  # stable: position breaks ties
-    th, tl, tv = tab_hi[ordt], tab_lo[ordt], tab_val[ordt]
-    last_of_run = np.empty(2 * P2, bool)
-    last_of_run[-1] = True
-    last_of_run[:-1] = (th[1:] != th[:-1]) | (tl[1:] != tl[:-1])
-    key_hi, key_lo, key_val = (
-        th[last_of_run], tl[last_of_run], tv[last_of_run])
+    with profiling.phase("contiger:host assembly.links", sync=False):
+        # (track_kmer_worker, contig_assembly.cpp:956-1010).  Insertion order
+        # mirrors the dict the previous implementation used: for each id, RC
+        # then first; the LAST write wins on key collisions (palindromic
+        # unitigs collapse to the + entry).
+        rthi, rtlo = kpn.revcomp_packed(thi, tlo, k)  # == mirror head kmer
+        tab_hi = np.empty(2 * P2, np.uint64)
+        tab_lo = np.empty(2 * P2, np.uint64)
+        tab_val = np.empty(2 * P2, np.int64)
+        ids1 = np.arange(P2, dtype=np.int64) + 1
+        tab_hi[0::2], tab_lo[0::2], tab_val[0::2] = rthi, rtlo, -ids1
+        tab_hi[1::2], tab_lo[1::2], tab_val[1::2] = fhi, flo, ids1
+        ordt = np.lexsort((tab_lo, tab_hi))  # stable: position breaks ties
+        th, tl, tv = tab_hi[ordt], tab_lo[ordt], tab_val[ordt]
+        last_of_run = np.empty(2 * P2, bool)
+        last_of_run[-1] = True
+        last_of_run[:-1] = (th[1:] != th[:-1]) | (tl[1:] != tl[:-1])
+        key_hi, key_lo, key_val = (
+            th[last_of_run], tl[last_of_run], tv[last_of_run])
 
-    # ---- link queries (build_graph_worker, contig_assembly.cpp:1012-1084)
-    # after: (last k-1 bases) + X for X in ACGT;
-    # before: RC(first k-1 bases) + X for X in TGCA (shift_in_base on the
-    # RC'd first kmer reproduces RC(seq[:k-1]) + X exactly).
-    rfhi, rflo = kpn.revcomp_packed(fhi, flo, k)
-    qa_hi = np.empty((4, P2), np.uint64)
-    qa_lo = np.empty((4, P2), np.uint64)
-    qb_hi = np.empty((4, P2), np.uint64)
-    qb_lo = np.empty((4, P2), np.uint64)
-    for X in range(4):
-        qa_hi[X], qa_lo[X] = kpn.shift_in_base(thi, tlo, X, k)
-    for xi, X in enumerate((3, 2, 1, 0)):
-        qb_hi[xi], qb_lo[xi] = kpn.shift_in_base(rfhi, rflo, X, k)
-    ja = kpn.join(key_hi, key_lo, qa_hi.reshape(-1), qa_lo.reshape(-1))
-    jb = kpn.join(key_hi, key_lo, qb_hi.reshape(-1), qb_lo.reshape(-1))
-    av4 = np.where(ja >= 0, key_val[np.maximum(ja, 0)], 0).reshape(4, P2)
-    bv4 = np.where(jb >= 0, key_val[np.maximum(jb, 0)], 0).reshape(4, P2)
+        # ---- link queries (build_graph_worker, contig_assembly.cpp:1012-1084)
+        # after: (last k-1 bases) + X for X in ACGT;
+        # before: RC(first k-1 bases) + X for X in TGCA (shift_in_base on the
+        # RC'd first kmer reproduces RC(seq[:k-1]) + X exactly).
+        rfhi, rflo = kpn.revcomp_packed(fhi, flo, k)
+        qa_hi = np.empty((4, P2), np.uint64)
+        qa_lo = np.empty((4, P2), np.uint64)
+        qb_hi = np.empty((4, P2), np.uint64)
+        qb_lo = np.empty((4, P2), np.uint64)
+        for X in range(4):
+            qa_hi[X], qa_lo[X] = kpn.shift_in_base(thi, tlo, X, k)
+        for xi, X in enumerate((3, 2, 1, 0)):
+            qb_hi[xi], qb_lo[xi] = kpn.shift_in_base(rfhi, rflo, X, k)
+        ja = kpn.join(key_hi, key_lo, qa_hi.reshape(-1), qa_lo.reshape(-1))
+        jb = kpn.join(key_hi, key_lo, qb_hi.reshape(-1), qb_lo.reshape(-1))
+        av4 = np.where(ja >= 0, key_val[np.maximum(ja, 0)], 0).reshape(4, P2)
+        bv4 = np.where(jb >= 0, key_val[np.maximum(jb, 0)], 0).reshape(4, P2)
 
-    # ---- sibling discovery edges (connectivity only, never dumped) -------
-    # the reference SPAWNS before-candidates that share a tail junction's
-    # (k-1)-suffix (contig_assembly.cpp:3140-3165): a unitig discovered
-    # that way belongs to the discovering component even when no k-1
-    # overlap link exists (e.g. an isolated phantom sibling).  Probe the 4
-    # suffix-siblings of both mirror tails.
-    qs_hi = np.empty((8, P2), np.uint64)
-    qs_lo = np.empty((8, P2), np.uint64)
-    for X in range(4):
-        qs_hi[X], qs_lo[X] = kpn.replace_first_base(thi, tlo, X, k)
-        qs_hi[4 + X], qs_lo[4 + X] = kpn.replace_first_base(
-            rfhi, rflo, X, k)
-    jsib = kpn.join(key_hi, key_lo, qs_hi.reshape(-1), qs_lo.reshape(-1))
-    sv8 = np.where(jsib >= 0, key_val[np.maximum(jsib, 0)], 0).reshape(8, P2)
+        # ---- sibling discovery edges (connectivity only, never dumped) ---
+        # the reference SPAWNS before-candidates that share a tail junction's
+        # (k-1)-suffix (contig_assembly.cpp:3140-3165): a unitig discovered
+        # that way belongs to the discovering component even when no k-1
+        # overlap link exists (e.g. an isolated phantom sibling).  Probe the 4
+        # suffix-siblings of both mirror tails.
+        qs_hi = np.empty((8, P2), np.uint64)
+        qs_lo = np.empty((8, P2), np.uint64)
+        for X in range(4):
+            qs_hi[X], qs_lo[X] = kpn.replace_first_base(thi, tlo, X, k)
+            qs_hi[4 + X], qs_lo[4 + X] = kpn.replace_first_base(
+                rfhi, rflo, X, k)
+        jsib = kpn.join(key_hi, key_lo, qs_hi.reshape(-1), qs_lo.reshape(-1))
+        sv8 = np.where(jsib >= 0, key_val[np.maximum(jsib, 0)],
+                       0).reshape(8, P2)
 
     # ---- component seed filter (-x/-X semantics) --------------------------
-    self_idx = np.broadcast_to(np.arange(P2, dtype=np.int64), (4, P2))
-    self_idx8 = np.broadcast_to(np.arange(P2, dtype=np.int64), (8, P2))
-    nbr = np.vstack([
-        np.where(av4 != 0, np.abs(av4) - 1, self_idx),
-        np.where(bv4 != 0, np.abs(bv4) - 1, self_idx),
-        np.where(sv8 != 0, np.abs(sv8) - 1, self_idx8),
-    ])
-    lab = _connected_components(nbr)
-    comp_seeded = np.zeros(P2, bool)
-    if P2:
-        comp_seeded[np.unique(lab[seed2])] = True
-    keep_u = comp_seeded[lab] if P2 else np.zeros(0, bool)
-    n_dropped = P2 - int(keep_u.sum())
-    if n_dropped:
-        log(f"[Contiger] dropped {n_dropped} unitigs in components with no "
-            f"solid seed (count in [{smin}, {smax}])")
+    with profiling.phase("contiger:host assembly.components", sync=False):
+        self_idx = np.broadcast_to(np.arange(P2, dtype=np.int64), (4, P2))
+        self_idx8 = np.broadcast_to(np.arange(P2, dtype=np.int64), (8, P2))
+        nbr = np.vstack([
+            np.where(av4 != 0, np.abs(av4) - 1, self_idx),
+            np.where(bv4 != 0, np.abs(bv4) - 1, self_idx),
+            np.where(sv8 != 0, np.abs(sv8) - 1, self_idx8),
+        ])
+        lab = _connected_components(nbr)
+        comp_seeded = np.zeros(P2, bool)
+        if P2:
+            comp_seeded[np.unique(lab[seed2])] = True
+        keep_u = comp_seeded[lab] if P2 else np.zeros(0, bool)
+        n_dropped = P2 - int(keep_u.sum())
+        if n_dropped:
+            log(f"[Contiger] dropped {n_dropped} unitigs in components with "
+                f"no solid seed (count in [{smin}, {smax}])")
 
-    fsel = np.flatnonzero(keep_u)
-    F = len(fsel)
-    if F == 0:
-        return ArrayUnitigs.empty(k)
-    new_id = np.full(P2, -1, np.int64)
-    new_id[fsel] = np.arange(F)
+        fsel = np.flatnonzero(keep_u)
+        F = len(fsel)
+        if F == 0:
+            return ArrayUnitigs.empty(k)
+        new_id = np.full(P2, -1, np.int64)
+        new_id[fsel] = np.arange(F)
 
-    def remap_links(v4):
-        vals = v4[:, fsel].T  # (F, 4): per-unitig link lists in X order
-        mask = vals != 0
-        flat = vals[mask]
-        flat = np.sign(flat) * (new_id[np.abs(flat) - 1] + 1)
-        ptr = np.r_[0, np.cumsum(mask.sum(axis=1))]
-        return ptr.astype(np.int64), flat.astype(np.int64)
+        def remap_links(v4):
+            vals = v4[:, fsel].T  # (F, 4): per-unitig link lists in X order
+            mask = vals != 0
+            flat = vals[mask]
+            flat = np.sign(flat) * (new_id[np.abs(flat) - 1] + 1)
+            ptr = np.r_[0, np.cumsum(mask.sum(axis=1))]
+            return ptr.astype(np.int64), flat.astype(np.int64)
 
-    after_ptr, after_val = remap_links(av4)
-    before_ptr, before_val = remap_links(bv4)
+        after_ptr, after_val = remap_links(av4)
+        before_ptr, before_val = remap_links(bv4)
 
     # ---- sequence materialization ----------------------------------------
-    lens_f = lens2[fsel]
-    starts_f = starts2[fsel]
-    out_lens = lens_f + k - 1
-    offs = np.r_[0, np.cumsum(out_lens)]
-    seq_codes = np.empty(offs[-1], np.uint8)
-    fhi_f, flo_f = fhi[fsel], flo[fsel]
-    for j in range(k):
-        seq_codes[offs[:-1] + j] = kpn.base_at(fhi_f, flo_f, j, k)
-    m_total = int(lens_f.sum())
-    segf = np.repeat(np.arange(F, dtype=np.int64), lens_f)
-    within = np.arange(m_total, dtype=np.int64) - np.repeat(
-        np.r_[0, np.cumsum(lens_f)[:-1]], lens_f)
-    midx = starts_f[segf] + within
-    nz = within >= 1
-    pos = offs[segf] + (k - 1) + within
-    seq_codes[pos[nz]] = lastb[midx[nz]]
+    with profiling.phase("contiger:host assembly.sequences", sync=False):
+        lens_f = lens2[fsel]
+        starts_f = starts2[fsel]
+        out_lens = lens_f + k - 1
+        offs = np.r_[0, np.cumsum(out_lens)]
+        seq_codes = np.empty(offs[-1], np.uint8)
+        fhi_f, flo_f = fhi[fsel], flo[fsel]
+        for j in range(k):
+            seq_codes[offs[:-1] + j] = kpn.base_at(fhi_f, flo_f, j, k)
+        m_total = int(lens_f.sum())
+        segf = np.repeat(np.arange(F, dtype=np.int64), lens_f)
+        within = np.arange(m_total, dtype=np.int64) - np.repeat(
+            np.r_[0, np.cumsum(lens_f)[:-1]], lens_f)
+        midx = starts_f[segf] + within
+        nz = within >= 1
+        pos = offs[segf] + (k - 1) + within
+        seq_codes[pos[nz]] = lastb[midx[nz]]
 
-    # ---- palindromes: head kmer == mirror head kmer <=> seq == RC(seq) ----
-    pal = (fhi_f == rthi[fsel]) & (flo_f == rtlo[fsel])
+        # ---- palindromes: head kmer == mirror head kmer <=> seq == RC(seq)
+        pal = (fhi_f == rthi[fsel]) & (flo_f == rtlo[fsel])
 
-    return ArrayUnitigs(
-        k=k, seq_codes=seq_codes, offsets=offs.astype(np.int64),
-        med=med2[fsel].astype(np.int64),
-        after_ptr=after_ptr, after_val=after_val,
-        before_ptr=before_ptr, before_val=before_val,
-        n_palindromes=int(pal.sum()),
-        mean=mean2[fsel])
+        return ArrayUnitigs(
+            k=k, seq_codes=seq_codes, offsets=offs.astype(np.int64),
+            med=med2[fsel].astype(np.int64),
+            after_ptr=after_ptr, after_val=after_val,
+            before_ptr=before_ptr, before_val=before_val,
+            n_palindromes=int(pal.sum()),
+            mean=mean2[fsel])
 
 
 def assemble_unitigs(

@@ -54,7 +54,10 @@ def _prefetch(it: Iterator, depth: int = 8) -> Iterator:
     If the consumer exits early (overflow raise, generator close), the
     worker is cancelled via a flag it checks between bounded q.put attempts
     and the source iterator is closed so generator finally-blocks run (the
-    native reader handle would otherwise leak its C++ threads)."""
+    native reader handle would otherwise leak its C++ threads).
+
+    Each pull from `it` is the span `count:reader next`, on the worker's
+    thread: the reader's time to hand over one batch."""
     import queue
     import threading
 
@@ -64,7 +67,11 @@ def _prefetch(it: Iterator, depth: int = 8) -> Iterator:
 
     def worker():
         try:
-            for x in it:
+            while True:
+                with profiling.phase("count:reader next", sync=False):
+                    x = next(it, DONE)
+                if x is DONE:
+                    break
                 while not cancelled.is_set():
                     try:
                         q.put(x, timeout=0.2)
@@ -78,7 +85,7 @@ def _prefetch(it: Iterator, depth: int = 8) -> Iterator:
             if not cancelled.is_set():
                 q.put(e)
 
-    t = threading.Thread(target=worker, daemon=True)
+    t = threading.Thread(target=worker, name="prefetch", daemon=True)
     t.start()
     try:
         while True:
@@ -274,7 +281,8 @@ def build_spectrum(
     it = _prefetch(iter(batches))
     while True:
         with profiling.phase("count:host read/pack"):
-            batch = next(it, None)
+            with profiling.phase("count:host read/pack.wait", sync=False):
+                batch = next(it, None)
             if batch is None:
                 break
             if isinstance(batch, fastq.PackedBatch):

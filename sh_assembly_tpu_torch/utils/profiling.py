@@ -12,6 +12,13 @@ Same API as ``sh_assembly_tpu.utils.profiling``:
 
 A phase synchronises CUDA when it ends (if CUDA is in use), so its time
 covers the device work queued inside it rather than only the enqueue.
+``phase(name, sync=False)`` leaves CUDA alone: for a span of host work,
+and for any span on a thread that must not wait on the card.
+
+Spans nest: each records as its ``parent`` the innermost span open on the
+same thread when it first opened, and ``report()`` prints children under
+their parent with the parent's self time.  A child's name is its parent's,
+a dot, and the step (``contiger:contract.walk``).
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from __future__ import annotations
 import contextlib
 import os
 import statistics
+import threading
 import time
 from dataclasses import dataclass, field
 
@@ -31,6 +39,8 @@ from .logging import log
 class _PhaseStat:
     seconds: float = 0.0
     calls: int = 0
+    parent: str | None = None  # innermost span open when it first opened
+    thread: str = ""  # the thread that writes it
 
 
 def _sync() -> None:
@@ -79,33 +89,81 @@ def queued_ms(fn, reps: int) -> float:
 
 @dataclass
 class PhaseTimer:
-    """Accumulates wall-clock per named phase.  Not thread-safe (the
-    pipeline is single-threaded on the host)."""
+    """Accumulates wall-clock per named phase.  Each name is written by one
+    thread; spans on several threads may be open at once, each thread with
+    its own stack of open spans."""
 
     stats: dict[str, _PhaseStat] = field(default_factory=dict)
-    t_start: float = field(default_factory=time.time)
+    t_start: float = field(default_factory=time.perf_counter)
+    _open: threading.local = field(default_factory=threading.local,
+                                   repr=False, compare=False)
+
+    def _stack(self) -> list:
+        stack = getattr(self._open, "stack", None)
+        if stack is None:
+            stack = self._open.stack = []
+        return stack
 
     @contextlib.contextmanager
-    def phase(self, name: str):
-        st = self.stats.setdefault(name, _PhaseStat())
-        t0 = time.time()
-        with torch.profiler.record_function(name):
-            yield
-            _sync()
-        st.seconds += time.time() - t0
+    def phase(self, name: str, sync: bool = True):
+        stack = self._stack()
+        st = self.stats.get(name)
+        if st is None:
+            st = self.stats[name] = _PhaseStat(
+                parent=stack[-1] if stack else None,
+                thread=threading.current_thread().name)
+        stack.append(name)
+        t0 = time.perf_counter()
+        try:
+            with torch.profiler.record_function(name):
+                yield
+                if sync:
+                    _sync()
+        finally:
+            stack.pop()
+        st.seconds += time.perf_counter() - t0
         st.calls += 1
 
     def report(self, header: str = "phase breakdown") -> str:
-        total = time.time() - self.t_start
-        covered = sum(s.seconds for s in self.stats.values())
+        """Spans as trees, children indented under their parent with the
+        parent's self time.  "Covered" counts the main thread's top-level
+        spans only: a child's time lies inside its parent's, and another
+        thread's spans run beside the main thread's."""
+        total = time.perf_counter() - self.t_start
+        kids: dict = {}
+        for name, s in self.stats.items():
+            kids.setdefault(s.parent, []).append(name)
+        main = threading.main_thread().name
+        tops = kids.get(None, [])
+        covered = sum(self.stats[n].seconds for n in tops
+                      if self.stats[n].thread == main)
+
+        def tree(names, depth=0):
+            for name in sorted(names, key=lambda n: -self.stats[n].seconds):
+                yield depth, name
+                yield from tree(kids.get(name, []), depth + 1)
+
+        here = list(tree(n for n in tops if self.stats[n].thread == main))
+        beside = list(tree(n for n in tops if self.stats[n].thread != main))
+        width = max((2 * d + len(n) for d, n in here + beside), default=0)
+
+        def row(depth, name):
+            s = self.stats[name]
+            pct = s.seconds / total * 100 if total else 0.0
+            text = (f"  {'  ' * depth + name:<{width}}  {s.seconds:8.2f}s "
+                    f"{pct:5.1f}% ({s.calls} calls")
+            if name in kids:
+                own = s.seconds - sum(self.stats[c].seconds
+                                      for c in kids[name])
+                text += f", self {own:.2f}s"
+            return text + ")"
+
         lines = [f"{header} (total {total:.2f}s, "
                  f"{covered / total * 100 if total else 0:.0f}% covered):"]
-        width = max((len(n) for n in self.stats), default=0)
-        for name, s in sorted(self.stats.items(),
-                              key=lambda kv: -kv[1].seconds):
-            pct = s.seconds / total * 100 if total else 0.0
-            lines.append(f"  {name:<{width}}  {s.seconds:8.2f}s {pct:5.1f}% "
-                         f"({s.calls} calls)")
+        lines += [row(d, n) for d, n in here]
+        if beside:
+            lines.append("  on other threads, beside the above:")
+            lines += [row(d, n) for d, n in beside]
         return "\n".join(lines)
 
     def log_report(self, header: str = "phase breakdown") -> None:
@@ -118,13 +176,13 @@ class PhaseTimer:
 GLOBAL = PhaseTimer()
 
 
-def phase(name: str):
-    return GLOBAL.phase(name)
+def phase(name: str, sync: bool = True):
+    return GLOBAL.phase(name, sync)
 
 
 def reset() -> None:
     GLOBAL.stats.clear()
-    GLOBAL.t_start = time.time()
+    GLOBAL.t_start = time.perf_counter()
 
 
 @contextlib.contextmanager
