@@ -8,9 +8,10 @@ exits non-zero without printing a result:
 
   0. device: nvidia-smi name and power limit, torch/CUDA versions; no GPU
      is an error.
-  1. build: compiles kernels K1-K8 (csrc/merge_dedup.cu, count_join.cu,
+  1. build: compiles kernels K1-K9 (csrc/merge_dedup.cu, count_join.cu,
      merge128.cu, block_sort.cu, hash_append.cu, stage_windows.cu,
-     node_join.cu, node_probes.cu; hash_append and stage_windows include
+     node_join.cu, node_probes.cu, contract.cu; hash_append and
+     stage_windows include
      csrc/tile_scan.cuh) from the checkout, one nvcc each, in parallel;
      prints K5's and K6's tiles at their real shapes and for rows of
      20,000 bases (rows or segments a block, shared memory, registers,
@@ -53,25 +54,28 @@ exits non-zero without printing a result:
      kernels by name.
   6. parity: the pipeline CLI (reads -> unitigs -> contigs) on the bench's
      end-to-end shape with --device cpu and --device cuda; unitigs.fa and
-     contigs.fa must be byte-identical and the CUDA run must launch K1,
-     K2 and K3; then the Contiger CLI with --device cuda on the CPU run's
-     .ser, whose unitigs.fa must equal the CPU pipeline's and which must
-     launch K2 and K3.
+     contigs.fa must be byte-identical, the CUDA run must launch every
+     kernel of the path (K1-K3, K5-K9) and the CPU run none; then the
+     Contiger CLI with --device cuda on the CPU run's .ser, whose
+     unitigs.fa must equal the CPU pipeline's and which must launch K2,
+     K3 and K6-K9.
   7. main path at real size: the pipeline CLI on a 12 Mbp genome (30x of
      150 bp reads); prints the phase breakdown, peak device memory, node,
      unitig and contig counts and N50; the contigs must total within 10%
-     of the genome, every kernel of the path (K1, K2, K3, K5-K8) must
+     of the genome, every kernel of the path (K1, K2, K3, K5-K9) must
      launch, K5 by the stack (fewer launches and append calls than
      batches), K6 once a ``_stage_super`` call with no call of its plain
      chain, K8 once a call of the probe programs (``phantom_candidates``,
      ``build_oriented_graph``), K7 through one table for the run (a build,
      an append a closure round that found phantoms, a probe a round and
      one for the graph) with no one-shot ``join2``, no call of
-     ``node_probes_plain`` or ``join2_plain``, and the native contraction
-     library must load; prints every K7 call's device time; then replays
-     the closure and the graph probe on the run's inputs and holds every
-     probe of the table against ``join2_plain`` on that round's padded
-     store.
+     ``node_probes_plain`` or ``join2_plain``, and the contraction
+     through K9 alone (its three calls, no host walk); prints every K7
+     call's device time; then replays the closure and the graph probe on
+     the run's inputs and holds every probe of the table against
+     ``join2_plain`` on that round's padded store, and runs the
+     contraction's host route on the run's own forest, whose unitigs.fa
+     must be the CUDA run's, byte for byte.
 
   8. K4 (window sort) against its plain PyTorch version on the card,
      bitwise: windows of 2^7 to 2^19 values (several windows in a block,
@@ -191,6 +195,13 @@ exits non-zero without printing a result:
      2^24 nodes against profile.stage2's spectrum (probes, node join,
      count join with its library sort, the rest), its peak, and one
      closure round.
+ 17. K9 (contraction) against the host route (the native walk, numpy's
+     reverse complements and keep rule) and its plain twin on the card,
+     bitwise: paths, cycles with and without a splitter, padding rows, a
+     mirrored forest, cycles only, no edge, M = 2, k = 21 to 63, one path
+     of 2^20 oriented nodes beside 2^12 cycles (``k9_cases``); then at
+     the E. coli cell's oriented extent (2^24, K9_SHAPE), timed as phase
+     14 times K5 beside the bound, the plain twin and the host route.
 
 ``python3 chip_smoke.py --nccl-processes N`` runs phases 0, 1 and 11a
 alone at N processes x 1 shard over NCCL, a card each (N cards).
@@ -202,7 +213,8 @@ limit.  The kernels line gives launches on the path that runs each (phase
 main path never launches), launches on the mesh path (phase 10c), launches
 summed over the processes of the multi-process path (mp_launches: 11a for
 K1 and K5, 11b for K2, K3, K6, K7 and K8), launches in the bench
-(bench_launches, phase 13), times (K5's at profile.hot's shape, genome_*
+(bench_launches, phase 13), times (K9's at phase 17's cell extent, with
+its parts and the host route's time; K5's at profile.hot's shape, genome_*
 at phase 7's; K6's at phase 7's, stage2_* at the bench's; K7's and K8's at
 the graph shape of phase 16, closure_* at its closure shape, K7's later_*
 at its later closure round of a 2^14 frontier (an append and a probe),
@@ -1216,6 +1228,124 @@ def k8_compare(name, hi, lo, k, key_bits, mode) -> None:
                                  f"differs in {bad} entries")
 
 
+def k9_forest(seed: int, n: int, k: int, lens=(1, 40), long_paths=(),
+              cycles: int = 0, cycle_lens=(1, 40), pad: float = 0.2,
+              mirror: bool = False):
+    """A chain forest over the 2n oriented nodes of n node k-mers, as K9
+    takes it -> (chain_next int32[2n], hi, lo uint64[n]) numpy.
+
+    A share ``pad`` of the nodes, spread through the store, are (-1, -1)
+    padding rows with no edge.  The oriented nodes of the rest, in random
+    order (``mirror``: each node in one random orientation, every edge
+    a -> b joined by its mirror b ^ 1 -> a ^ 1, as ``build_oriented_graph``
+    gives them), form the paths of ``long_paths``, then ``cycles`` cycles of
+    lengths in ``cycle_lens`` (none starting at its least node; the last cut
+    short where the nodes run out), then paths
+    of lengths in ``lens``.  One node in eight takes its hi word from a pool
+    of four and one in 64 another node's whole k-mer, so that the keep rule
+    meets ties in either word."""
+    rng = np.random.default_rng(seed)
+    hi, lo = _rand_kmers(rng, n, k)
+    tie = rng.random(n) < 1 / 8
+    hi[tie] = rng.choice(hi[:4], int(tie.sum()))
+    same = np.flatnonzero(rng.random(n) < 1 / 64)
+    src = rng.integers(0, n, len(same))
+    hi[same], lo[same] = hi[src], lo[src]
+    is_pad = rng.random(n) < pad
+    hi[is_pad] = lo[is_pad] = _SENT64
+    real = rng.permutation(np.flatnonzero(~is_pad))
+    units = 2 * real + rng.integers(0, 2, len(real)) if mirror else \
+        rng.permutation(np.concatenate([2 * real, 2 * real + 1]))
+    nxt = np.full(2 * n, -1, np.int64)
+    at = 0
+
+    def link(seg, cycle):
+        if mirror:
+            nxt[seg[1:] ^ 1] = seg[:-1] ^ 1
+            if cycle:
+                nxt[seg[0] ^ 1] = seg[-1] ^ 1
+        nxt[seg[:-1]] = seg[1:]
+        if cycle:
+            nxt[seg[-1]] = seg[0]
+
+    for ln in long_paths:
+        link(units[at:at + ln], False)
+        at += ln
+    for ln in rng.integers(cycle_lens[0], cycle_lens[1] + 1, cycles):
+        seg = units[at:at + ln].copy()  # the last may be cut short
+        if len(seg) == 0:
+            break
+        if len(seg) > 1 and seg[0] == seg.min():
+            seg[[0, 1]] = seg[[1, 0]]
+        link(seg, True)
+        at += ln
+    # the paths: cut the rest at random lengths, vectorised
+    rest = units[at:]
+    cuts = np.cumsum(rng.integers(lens[0], lens[1] + 1, len(rest)))
+    last = np.zeros(len(rest), bool)
+    last[cuts[cuts <= len(rest)] - 1] = True
+    last[-1:] = True
+    nxt[rest[:-1][~last[:-1]]] = rest[1:][~last[:-1]]
+    if mirror:
+        nxt[rest[1:][~last[:-1]] ^ 1] = rest[:-1][~last[:-1]] ^ 1
+    return nxt.astype(np.int32), hi, lo
+
+
+def k9_cases(large: bool = False):
+    """(name, chain_next, hi, lo, k) forests of K9's tests: paths, cycles
+    (of one node, two, up to 80 with splitters and without) and padding rows
+    at k = 21, 47 and 63, a mirrored forest, forests of cycles only and of
+    no edge, M = 2 with a cycle and with none; ``large``: one path of 2^20
+    oriented nodes beside 2^12 cycles."""
+    for k in (21, 47, 63):
+        yield (f"mixed_k{k}", *k9_forest(90 + k, 3000, k, long_paths=(700,),
+                                         cycles=30, cycle_lens=(1, 80)), k)
+    yield ("mirrored", *k9_forest(91, 3000, 47, cycles=12, mirror=True), 47)
+    yield ("cycles_only", *k9_forest(92, 2000, 31, cycles=60,
+                                     cycle_lens=(1, 200), pad=0.0), 31)
+    hi, lo = _rand_kmers(np.random.default_rng(93), 500, 21)
+    yield "no_edge", np.full(1000, -1, np.int32), hi, lo, 21
+    hi, lo = _rand_kmers(np.random.default_rng(94), 1, 47)
+    yield "m2_cycle", np.array([1, 0], np.int32), hi, lo, 47
+    yield "m2_none", np.array([-1, -1], np.int32), hi, lo, 47
+    if large:
+        yield ("long_path", *k9_forest(95, 1 << 20, 47, long_paths=(1 << 20,),
+                                       cycles=1 << 12, cycle_lens=(1, 64),
+                                       pad=0.1), 47)
+
+
+def k9_host(chain_next, hi, lo, k: int):
+    """The host route's contraction of a k9_cases forest (numpy in and out:
+    the native walk, numpy's reverse complements, the keep rule) -> (head,
+    dist, keep, rhi, rlo)."""
+    from sh_assembly_tpu_torch.models import contiger
+    from sh_assembly_tpu_torch.ops import kmerpack_np as kpn
+
+    head, dist, is_tail = contiger.contract_paths_host(chain_next)
+    rhi, rlo = kpn.revcomp_packed(hi, lo, k)
+    keep = contiger._path_summary_np(head, is_tail, hi, lo, rhi, rlo)
+    return head, dist, keep, rhi, rlo
+
+
+def k9_compare(name, got, want) -> None:
+    """K9's or its plain twin's outputs (tensors) against ``k9_host``'s,
+    bitwise, with n_bad 0."""
+    import torch
+
+    from sh_assembly_tpu_torch.ops import bits
+
+    *got, n_bad = got
+    if int(n_bad.item()) != 0:
+        raise AssertionError(f"K9 on {name}: n_bad {int(n_bad.item())}")
+    for f, a, b in zip(("head", "dist", "keep", "rhi", "rlo"), got, want):
+        a = bits.to_u64_np(a) if a.dtype == torch.int64 else a.cpu().numpy()
+        if a.dtype != b.dtype or a.shape != b.shape or \
+                not np.array_equal(a, b):
+            bad = int((a != b).sum()) if a.shape == b.shape else "all"
+            raise AssertionError(f"K9 on {name}: {f} differs from the host "
+                                 f"route in {bad} entries")
+
+
 def _merged_spectrum(store, n, key_bits):
     """A merged Spectrum around a packed store with n live entries."""
     import torch
@@ -1298,20 +1428,22 @@ def phase1_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from sh_assembly_tpu_torch.ops import _build, blocksort_cuda, \
-        hash_append_cuda, join_cuda, merge128_cuda, merge_cuda, \
-        node_join_cuda, probe_cuda, stage_cuda
+        contract_cuda, hash_append_cuda, join_cuda, merge128_cuda, \
+        merge_cuda, node_join_cuda, probe_cuda, stage_cuda
 
     print("== phase 1: build", flush=True)
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)  # build from source
     t0 = time.time()
     # one nvcc per source, all started together
     mods = (merge_cuda, join_cuda, merge128_cuda, blocksort_cuda,
-            hash_append_cuda, stage_cuda, node_join_cuda, probe_cuda)
+            hash_append_cuda, stage_cuda, node_join_cuda, probe_cuda,
+            contract_cuda)
     with ThreadPoolExecutor(len(mods)) as ex:
         for f in [ex.submit(m.build) for m in mods]:
             f.result()
     for name in ("merge_dedup", "count_join", "merge128", "block_sort",
-                 "hash_append", "stage_windows", "node_join", "node_probes"):
+                 "hash_append", "stage_windows", "node_join", "node_probes",
+                 "contract"):
         print(f"built {name} (sm_90a) -> {_build.lib_path(name)}")
     print(f"  all kernels built in {time.time() - t0:.2f} s")
     # K5's and K6's tiles: their real stacks (8 x 8192 rows) and a long row
@@ -1800,13 +1932,14 @@ def _spies(*targets):
 
 
 def _launch_counters():
-    from sh_assembly_tpu_torch.ops import hash_append_cuda, join_cuda, \
-        merge128_cuda, merge_cuda, node_join_cuda, probe_cuda, stage_cuda
+    from sh_assembly_tpu_torch.ops import contract_cuda, hash_append_cuda, \
+        join_cuda, merge128_cuda, merge_cuda, node_join_cuda, probe_cuda, \
+        stage_cuda
 
     return {"merge_dedup": merge_cuda, "count_join": join_cuda,
             "merge128": merge128_cuda, "hash_append": hash_append_cuda,
             "stage_windows": stage_cuda, "node_join": node_join_cuda,
-            "node_probes": probe_cuda}
+            "node_probes": probe_cuda, "contract": contract_cuda}
 
 
 def _reset_launches():
@@ -1876,8 +2009,8 @@ def phase6_pipeline_parity():
                              "the CPU pipeline's")
     if not all(launches[n] for n in ("count_join", "merge128",
                                      "stage_windows", "node_join",
-                                     "node_probes")):
-        raise AssertionError(f"K2, K3, K6, K7 or K8 never launched in "
+                                     "node_probes", "contract")):
+        raise AssertionError(f"K2, K3, K6, K7, K8 or K9 never launched in "
                              f"cli.contiger: {launches}")
     print("  cli.contiger's CUDA unitigs.fa byte-identical to the CPU "
           "pipeline's")
@@ -1895,7 +2028,6 @@ GENOME_FLAGS = ["-k", "47", "-n", "12000000",
 def phase7_genome():
     import torch
 
-    from sh_assembly_tpu_torch.io import native
     from sh_assembly_tpu_torch.models import contiger
     from sh_assembly_tpu_torch.ops import kmerpack as kp, node_join_cuda, \
         probe_cuda, stage_cuda
@@ -1912,26 +2044,35 @@ def phase7_genome():
           f"{time.time() - t0:.1f} s")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    # count calls of the torch contraction, which runs only when the native
-    # one is missing or fails; of the collect staging, the probe programs
-    # and the one-shot node join; and of the plain versions of K6, K7 and
-    # K8, which the card must never run on this path; time every call into
-    # K7's library; keep the closure's inputs for the check below.  One
-    # join first loads K7's kernels (CUDA loads a module at its first
-    # launch), so that the timed calls are device work
+    # count calls of the host's contractions (the native walk and the torch
+    # one), which the card's forest must never take; of the collect
+    # staging, the probe programs and the one-shot node join; and of the
+    # plain versions of K6, K7 and K8, which the card must never run on
+    # this path; time every call into K7's library; keep the closure's and
+    # the contraction's inputs for the checks below.  One join first loads
+    # K7's kernels (CUDA loads a module at its first launch), so that the
+    # timed calls are device work
     t = torch.zeros(1, dtype=torch.int64, device="cuda")
     node_join_cuda.node_join(t, t, t, t)
     _reset_launches()
-    closure_in = []
-    real_closure = contiger.close_over_phantoms
+    closure_in, finalize_in = [], []
+    real_closure, real_finalize = (contiger.close_over_phantoms,
+                                   contiger.finalize_unitigs)
 
     def keep_closure(*a, **kw):
         closure_in.append(a)
         return real_closure(*a, **kw)
 
+    def keep_finalize(*a, **kw):
+        finalize_in.append((a, kw))
+        return real_finalize(*a, **kw)
+
     contiger.close_over_phantoms = keep_closure
+    contiger.finalize_unitigs = keep_finalize
     try:
-        with _spies((contiger, "contract_paths"), (contiger, "_stage_super"),
+        with _spies((contiger, "contract_paths"),
+                    (contiger, "contract_paths_host"),
+                    (contiger, "_stage_super"),
                     (stage_cuda, "stage_windows_plain"),
                     (contiger, "phantom_candidates"),
                     (contiger, "build_oriented_graph"), (kp, "join2"),
@@ -1945,14 +2086,18 @@ def phase7_genome():
                 "cuda"], cli="pipeline")
     finally:
         contiger.close_over_phantoms = real_closure
-    fallback, supers, plain, closure, graph, joins, joins_plain, \
+        contiger.finalize_unitigs = real_finalize
+    fallback, host_walks, supers, plain, closure, graph, joins, joins_plain, \
         probes_plain = calls
     launches = _launches()
     kinds = dict(node_join_cuda.KINDS)
     peak = torch.cuda.max_memory_allocated()
-    lib = native._load()
-    if lib is None or not hasattr(lib, "shc_contract") or fallback:
-        raise AssertionError("the native contraction library did not run")
+    if fallback or host_walks or launches["contract"] != 3:
+        raise AssertionError(f"the contraction did not run through K9 alone "
+                             f"(a ranking, the reverse complements and the "
+                             f"keep rule): {launches['contract']} calls into "
+                             f"its library, {host_walks} native and "
+                             f"{fallback} torch walks")
     print("  phase breakdown:")
     for name, s in sorted(profiling.GLOBAL.stats.items(),
                           key=lambda kv: -kv[1].seconds):
@@ -2014,7 +2159,28 @@ def phase7_genome():
         raise AssertionError(f"contigs total {total} bp not within 10% of "
                              f"the {GENOME['genome_len']} bp genome")
     k7_closure_check(closure_in[0])
+    k9_route_check(finalize_in[0], os.path.join(d, "unitigs.fa"))
     return launches
+
+
+def k9_route_check(call, unitigs_fa: str) -> None:
+    """``finalize_unitigs`` again on the pipeline's own inputs, its forest
+    as numpy: the host route's ``unitigs.fa`` must be the CUDA run's,
+    byte for byte."""
+    from sh_assembly_tpu_torch.models import contiger
+
+    (hi, lo, real, counts, chain_next, params), kw = call
+    t0 = time.time()
+    arrays = contiger.finalize_unitigs(hi, lo, real, counts,
+                                       chain_next.cpu().numpy(), params, **kw)
+    path = unitigs_fa + ".host"
+    arrays.write_fasta(path)
+    same = open(path, "rb").read() == open(unitigs_fa, "rb").read()
+    os.remove(path)
+    if not same:
+        raise AssertionError("the host route's unitigs.fa differs from K9's")
+    print(f"  the host route on the same forest ({time.time() - t0:.1f} s): "
+          f"unitigs.fa byte-identical to K9's", flush=True)
 
 
 def k7_closure_check(args) -> None:
@@ -2448,9 +2614,11 @@ def phase10_mesh():
     for line in logtxt.splitlines():
         if "[Contiger/sharded]" in line and "shards" in line:
             print("  " + line.split("] ", 1)[-1])
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel never launched on the mesh path: "
-                             f"{launches}")
+    # the mesh's tail (finish_parts) contracts its numpy forest on the host
+    if not all(v for n, v in launches.items() if n != "contract") or \
+            launches["contract"]:
+        raise AssertionError(f"a kernel never launched on the mesh path, or "
+                             f"K9 did: {launches}")
     k = GENOME_FLAGS[1]
     buf = io.StringIO()
     t0 = time.time()
@@ -3294,6 +3462,84 @@ def phase16_k7_k8(device):
     return timing
 
 
+# K9 at the oriented extent of the E. coli cell (4.8 M real nodes padded to
+# 2^23): a mirrored forest of paths of 1 to 200 nodes, some of 20,000, and
+# cycles, 43 % of the nodes padding rows
+K9_SHAPE = dict(seed=96, nodes=1 << 23, k=47, lens=(1, 200),
+                long_paths=(20_000,) * 8, cycles=64, pad=0.43)
+
+
+def phase17_k9(device):
+    """K9 against the host route and its plain twin, bitwise, on its cases
+    and at the cell's extent, timed there beside the host route.  Returns
+    its timing."""
+    import torch
+
+    from sh_assembly_tpu_torch.ops import bits, contract_cuda
+
+    print("== phase 17: K9 (contraction) against the host route and its "
+          "plain twin", flush=True)
+
+    def tensors(cn, hi, lo):
+        return (torch.from_numpy(cn).to(device), bits.from_u64_np(hi, device),
+                bits.from_u64_np(lo, device))
+
+    before = contract_cuda.LAUNCHES
+    names = []
+    for name, cn, hi, lo, k in k9_cases(large=True):
+        want = k9_host(cn, hi, lo, k)
+        args = tensors(cn, hi, lo)
+        k9_compare(name, contract_cuda.contract_cuda(*args, k), want)
+        k9_compare(name, contract_cuda.contract_plain(*args, k), want)
+        names.append(name)
+    if contract_cuda.LAUNCHES - before != 3 * len(names):
+        raise AssertionError(f"{contract_cuda.LAUNCHES - before} calls into "
+                             f"K9's library for {len(names)} forests")
+    print(f"  K9: {len(names)} forests identical to the host route and the "
+          f"plain twin ({', '.join(names)})")
+
+    s = K9_SHAPE
+    k = s["k"]
+    cn, hi, lo = k9_forest(s["seed"], s["nodes"], k, lens=s["lens"],
+                           long_paths=s["long_paths"], cycles=s["cycles"],
+                           pad=s["pad"], mirror=True)
+    t0 = time.perf_counter()
+    want = k9_host(cn, hi, lo, k)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    args = tensors(cn, hi, lo)
+    M, Np = len(cn), len(hi)
+    k9_compare("the cell's extent", contract_cuda.contract_cuda(*args, k),
+               want)
+    ms, wms, pms = _probe_time(
+        lambda: contract_cuda.contract_cuda(*args, k),
+        lambda: contract_cuda.contract_plain(*args, k),
+        _same(f"K9 at {M} oriented nodes"))
+    head, _, tail_of, _ = contract_cuda.rank_cuda(args[0])
+    rhi, rlo = contract_cuda.revcomp_cuda(args[1], args[2], k)
+    parts = dict(
+        rank_ms=_queued_ms(lambda: contract_cuda.rank_cuda(args[0]), 10),
+        revcomp_ms=_queued_ms(
+            lambda: contract_cuda.revcomp_cuda(args[1], args[2], k), 10),
+        keep_ms=_queued_ms(lambda: contract_cuda.keep_cuda(
+            head, tail_of, args[1], args[2], rhi, rlo), 10))
+    # next read once; head, dist and keep written once; the node words read
+    # once and their reverse complements written once
+    moved = M * (4 + 4 + 4 + 1) + Np * (16 + 16)
+    t9 = dict(ms=ms, wrapper_ms=wms, plain_ms=pms, library_ms=None,
+              host_ms=host_ms, **parts, moved=moved, oriented_nodes=M,
+              heads=int((want[0] == np.arange(M)).sum()), **bound(moved, 0))
+    del args, head, tail_of, rhi, rlo
+    torch.cuda.empty_cache()
+    print(f"  K9 at the cell's extent ({M} oriented nodes, {t9['heads']} "
+          f"heads): identical; device {ms:.4f} ms (ranking "
+          f"{parts['rank_ms']:.4f}, reverse complements "
+          f"{parts['revcomp_ms']:.4f}, keep rule {parts['keep_ms']:.4f}; a "
+          f"wrapper call {wms:.4f} ms), plain {pms:.3f} ms, the host route "
+          f"{host_ms:.1f} ms, bound {t9['bound_ms']:.4f} ms "
+          f"({t9['bound_by']}, {moved / 1e9:.3f} GB)", flush=True)
+    return t9
+
+
 def phase12_profiles():
     """The profiling entry points of the counting hot path and the
     Contiger at their defaults (``profile.{entry,hot,collect,stage2}``)."""
@@ -3393,6 +3639,7 @@ def main() -> int:
         err5, timing5b = phase14_k5(dev)
         err6, timing6 = phase15_k6(dev)
         timing16 = phase16_k7_k8(dev)
+        timing["contract"] = phase17_k9(dev)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     loaded = [m for m in sys.modules
@@ -3456,7 +3703,12 @@ def main() -> int:
             ("node_probes", "node_probes",
              "sh_assembly_tpu/models/contiger.py:421-505 _node_hashes, "
              "_succ_probes, _sibling_probes (inside the jax.jit programs "
-             ":506 and :644, not a pl.pallas_call)", 0, pipeline)]
+             ":506 and :644, not a pl.pallas_call)", 0, pipeline),
+            ("contract", "contract",
+             "sh_assembly_tpu/models/contiger.py:766 contract_paths, :1102 "
+             "_path_summary_np and sh_assembly_tpu/ops/kmerpack.py:86 "
+             "revcomp_packed (run on the host there: cpp/contract.cpp and "
+             "numpy; not a pl.pallas_call)", 0, pipeline)]
     print(smi)  # the card and its power limit again, beside the numbers
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",

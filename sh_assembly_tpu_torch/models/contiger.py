@@ -21,11 +21,14 @@ and the same output (``unitigs.fa`` byte-identical):
      table, whose store the graph's is, for the successor indices, one K2
      count join for the 9N counts) give out-degrees and contractible
      chain edges.
-  D. contraction on the host (``cpp/contract.cpp``) and the vectorised
-     host assembly: sequences, medians, links, the solid-seed component
-     filter, FASTA.  Copied from the JAX package; every device array
-     reaches it as numpy uint64 through ``bits.to_u64_np``, because the
-     assembly compares k-mer words unsigned.
+  D. contraction where the chain forest lies: on the card, kernel K9
+     (``ops/contract_cuda``: the ranking, the reverse complements and the
+     mirror keep rule), on the host ``cpp/contract.cpp`` and numpy; then
+     the vectorised host assembly: sequences, medians, links, the
+     solid-seed component filter, FASTA.  Copied from the JAX package;
+     every device array reaches it as numpy uint64 through
+     ``bits.to_u64_np``, because the assembly compares k-mer words
+     unsigned.
 
 The node order decides the unitig numbering in ``unitigs.fa``: phantoms
 are appended in the order the closure finds them, and a round whose output
@@ -47,8 +50,9 @@ import torch
 
 from .. import config as cfg
 from ..io import fastq
-from ..ops import bits, kmerpack as kp, kmerpack_np as kpn, merge128_cuda, \
-    node_join_cuda, packio, probe_cuda, spectrum as sp, stage_cuda
+from ..ops import bits, contract_cuda, kmerpack as kp, kmerpack_np as kpn, \
+    merge128_cuda, node_join_cuda, packio, probe_cuda, spectrum as sp, \
+    stage_cuda
 from ..utils import dna, profiling
 from ..utils.logging import log
 
@@ -504,6 +508,12 @@ def contract_paths_host(chain_next):
     A native sequential walk over the pure paths/cycles of the chain forest
     (cpp/contract.cpp); falls back to the pointer-jumping contract_paths
     when the native library is unavailable.  Semantics identical.
+
+    The route of a forest that lies on the host: ``finalize_unitigs`` takes
+    it for numpy and CPU inputs (``--device cpu``, the mesh Contiger's
+    ``finish_parts``), and ``bench.py`` and ``profile/stage2.py`` time it
+    by name.  A forest on a CUDA device is contracted where it lies, by
+    kernel K9 (``ops/contract_cuda``), with the same results.
     """
     import ctypes
 
@@ -846,25 +856,56 @@ def finalize_unitigs(
     fall back to the component-contains-solid rule.  The device arrays
     cross to the host here, k-mer words as uint64 (bits.to_u64_np): the
     assembly orders them with numpy's unsigned comparisons.
+
+    The contraction runs where chain_next lies: a CUDA tensor on the card
+    (kernel K9, ``_contract_on_card``), numpy or a CPU tensor on the host
+    (``contract_paths_host``, numpy's reverse complements and keep rule).
     """
     k = params.k
     with profiling.phase("contiger:contract"):
-        with profiling.phase("contiger:contract.d2h", sync=False):
-            if isinstance(chain_next, torch.Tensor):
-                chain_next = chain_next.cpu().numpy()
-            hi_np = bits.to_u64_np(hi)
-            lo_np = bits.to_u64_np(lo)
-        with profiling.phase("contiger:contract.walk", sync=False):
-            head, dist, is_tail = contract_paths_host(chain_next)
-        with profiling.phase("contiger:contract.revcomp", sync=False):
-            rhi_np, rlo_np = kpn.revcomp_packed(hi_np, lo_np, k)
-        with profiling.phase("contiger:contract.keep rule", sync=False):
-            keep = _path_summary_np(head, is_tail, hi_np, lo_np,
-                                    rhi_np, rlo_np)
+        if isinstance(chain_next, torch.Tensor) and chain_next.is_cuda:
+            hi_np, lo_np, rhi_np, rlo_np, head, dist, keep = \
+                _contract_on_card(hi, lo, chain_next, k)
+        else:
+            with profiling.phase("contiger:contract.d2h", sync=False):
+                if isinstance(chain_next, torch.Tensor):
+                    chain_next = chain_next.cpu().numpy()
+                hi_np = bits.to_u64_np(hi)
+                lo_np = bits.to_u64_np(lo)
+            with profiling.phase("contiger:contract.walk", sync=False):
+                head, dist, is_tail = contract_paths_host(chain_next)
+            with profiling.phase("contiger:contract.revcomp", sync=False):
+                rhi_np, rlo_np = kpn.revcomp_packed(hi_np, lo_np, k)
+            with profiling.phase("contiger:contract.keep rule", sync=False):
+                keep = _path_summary_np(head, is_tail, hi_np, lo_np,
+                                        rhi_np, rlo_np)
     with profiling.phase("contiger:host assembly"):
         return _finalize_host(hi_np, lo_np, rhi_np, rlo_np, real,
                               node_counts.cpu().numpy(), head, dist, keep,
                               params, is_seed)
+
+
+def _contract_on_card(hi, lo, chain_next, k: int):
+    """Kernel K9 on the forest where it lies; only what the host assembly
+    reads crosses, once, after the launches: the node words and their
+    reverse complements as uint64, head, dist and keep.  Nothing here
+    synchronises but the copies, so the step spans time the launches and
+    ``.d2h`` waits for K9.  -> (hi, lo, rhi, rlo, head, dist, keep) numpy."""
+    contract_cuda.check(chain_next, hi, lo, k)
+    with profiling.phase("contiger:contract.walk", sync=False):
+        with profiling.phase("contiger:contract.walk.k9", sync=False):
+            head, dist, tail_of, n_bad = contract_cuda.rank_cuda(chain_next)
+    with profiling.phase("contiger:contract.revcomp", sync=False):
+        rhi, rlo = contract_cuda.revcomp_cuda(hi, lo, k)
+    with profiling.phase("contiger:contract.keep rule", sync=False):
+        keep = contract_cuda.keep_cuda(head, tail_of, hi, lo, rhi, rlo)
+    with profiling.phase("contiger:contract.d2h", sync=False):
+        out = [bits.to_u64_np(w) for w in (hi, lo, rhi, rlo)] + \
+            [t.cpu().numpy() for t in (head, dist, keep, n_bad)]
+    if out[-1][0]:
+        raise ValueError(f"chain_next: {out[-1][0]} targets out of range or "
+                         f"shared by two nodes")
+    return out[:-1]
 
 
 def _path_summary_np(head, is_tail, hi, lo, rhi, rlo):
