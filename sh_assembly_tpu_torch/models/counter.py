@@ -7,8 +7,9 @@ Counterpart of ``sh_assembly_tpu/models/counter.py``:
   device, per stack: unpack -> windowed canonical ntHash -> key mod
       2^key_bits -> append raw keys to the log buffer, all S batches in one
       launch of kernel K5 (``append_scan_packed``, ``ops/hash_append_cuda``)
-  when the buffer would overflow: sort the buffer, fold it into the sorted
-      store (kernel K1), and sweep singletons if the deNoise trigger fires
+  when the buffer would overflow, or early when the buffered keys could
+      reach the deNoise trigger: sort the buffer, fold it into the sorted
+      store (kernel K1), and sweep singletons if the trigger fires
       (``merge_maybe_sweep``)
   end of stream: finalize merge, threshold sweep, optional endDeNoise sweep
 
@@ -22,6 +23,7 @@ each, so the result does not depend on ``super_batch``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from dataclasses import dataclass
@@ -41,10 +43,13 @@ from ..utils.logging import log
 class BuildStats:
     batches: int = 0
     merges: int = 0
-    sweeps: int = 0
+    sweeps: int = 0  # deNoise rounds fired plus the end sweep
     kmers: int = 0
     distinct: int = 0
     seconds: float = 0.0
+    rounds: int = 0  # deNoise rounds fired (mid-stream and on the last chunk)
+    swept: int = 0  # keys those rounds dropped
+    early_merges: int = 0  # merges the near-trigger rule fired
 
 
 def _prefetch(it: Iterator, depth: int = 8) -> Iterator:
@@ -157,16 +162,32 @@ def append_scan_packed(spec: sp.Spectrum, packed: torch.Tensor,
 
 
 def merge_maybe_sweep(spec: sp.Spectrum, rounds_left: int, threshold: int,
-                      key_bits: int) -> tuple[sp.Spectrum, int]:
+                      key_bits: int, stats: BuildStats | None = None,
+                      merge_span: str | None = None,
+                      sweep_span: str = "count:merge.deNoise",
+                      ) -> tuple[sp.Spectrum, int]:
     """Buffer merge, then the deNoise sweep iff rounds remain and the
     post-merge distinct count crosses the threshold (the reference's
     needDeNoise).  Raises if the merge overflowed the store.  Returns
-    (spec, rounds_left)."""
-    spec = sp.merge(spec, key_bits)
-    sp.check_overflow(spec)
-    if rounds_left > 0 and spec.ndistinct >= threshold:
-        return sp.sweep(spec, key_bits), rounds_left - 1
-    return spec, rounds_left
+    (spec, rounds_left).
+
+    The merge runs inside the span ``merge_span`` when one is named, the
+    sweep inside ``sweep_span``; both are ``sync=False``: each fold ends
+    with its own host read of the live count.  ``stats`` counts the round
+    and the keys it dropped."""
+    with (profiling.phase(merge_span, sync=False) if merge_span
+          else contextlib.nullcontext()):
+        spec = sp.merge(spec, key_bits)
+        sp.check_overflow(spec)
+    if rounds_left <= 0 or spec.ndistinct < threshold:
+        return spec, rounds_left
+    before = spec.ndistinct
+    with profiling.phase(sweep_span, sync=False):
+        spec = sp.sweep(spec, key_bits)
+    if stats is not None:
+        stats.rounds += 1
+        stats.swept += before - spec.ndistinct
+    return spec, rounds_left - 1
 
 
 def build_spectrum(
@@ -220,26 +241,31 @@ def build_spectrum(
     threshold = int(sizing.ndistinct_for_deNoise)
     t0 = time.time()
 
-    def need_merge_before(n_buf: int) -> bool:
+    def need_merge_before(n_buf: int) -> str | None:
         """The per-batch cadence rule (the JAX package's, verbatim) at a
-        buffer fill of n_buf; ndistinct and rounds_left change only at
-        merges."""
+        buffer fill of n_buf: "full", "early" or None, the rule that fires;
+        ndistinct and rounds_left change only at merges."""
         if n_buf + BW > buf_capacity:
-            return True
+            return "full"
         # tighter deNoise cadence: when the buffered occurrences could push
         # ndistinct over the trigger, merge early so the sweep fires within
         # ~BC/4 of the crossing instead of up to one full buffer late.  The
         # n_buf >= BC/4 guard caps the extra merge cost at 4x cadence.
-        return (tight_denoise and rounds_left > 0
+        if (tight_denoise and rounds_left > 0
                 and n_buf >= buf_capacity // 4
-                and spec.ndistinct + n_buf >= threshold)
+                and spec.ndistinct + n_buf >= threshold):
+            return "early"
+        return None
 
-    def do_merge():
+    def do_merge(rule: str):
         nonlocal spec, rounds_left
         before = rounds_left
-        spec, rounds_left = merge_maybe_sweep(spec, rounds_left, threshold,
-                                              key_bits)
+        early = rule == "early"
+        spec, rounds_left = merge_maybe_sweep(
+            spec, rounds_left, threshold, key_bits, stats,
+            merge_span="count:merge.early" if early else None)
         stats.merges += 1
+        stats.early_merges += early
         if rounds_left < before:
             log(f"deNoise sweep {sizing.num_deNoise - rounds_left}: "
                 f"distinct={spec.ndistinct}")
@@ -269,9 +295,10 @@ def build_spectrum(
         # a merge inside the stack (or its tail): batch by batch, with the
         # cadence rule before each
         for i in range(fill):
-            if need_merge_before(spec.n_buf):
+            rule = need_merge_before(spec.n_buf)
+            if rule:
                 with profiling.phase("count:merge"):
-                    do_merge()
+                    do_merge(rule)
             with profiling.phase("count:device append"):
                 spec = append_scan_packed(spec, pk[i:i + 1], nm[i:i + 1],
                                           ln[i:i + 1], k, key_bits, Lp)
@@ -311,20 +338,19 @@ def build_spectrum(
         flush_stack(stack, fill)
 
     with profiling.phase("count:finalize merge+sweeps"):
-        spec = sp.merge(spec, key_bits)
-        stats.merges += 1
-        sp.check_overflow(spec)
         # the reference's trigger also fires on the final chunk
-        if rounds_left > 0 and spec.ndistinct >= threshold:
-            spec = sp.sweep(spec, key_bits)
-            rounds_left -= 1
+        before = rounds_left
+        spec, rounds_left = merge_maybe_sweep(
+            spec, rounds_left, threshold, key_bits, stats,
+            sweep_span="count:finalize merge+sweeps.deNoise")
+        stats.merges += 1
+        if rounds_left < before:
             log(f"deNoise sweep done; distinct={spec.ndistinct}")
         if sizing.end_deNoise:
             spec = sp.sweep(spec, key_bits)
             log(f"end deNoise sweep; distinct={spec.ndistinct}")
 
-    stats.sweeps = sizing.num_deNoise - rounds_left + (
-        1 if sizing.end_deNoise else 0)
+    stats.sweeps = stats.rounds + (1 if sizing.end_deNoise else 0)
     stats.kmers = int(spec.nelts)
     stats.distinct = spec.ndistinct
     stats.seconds = time.time() - t0

@@ -222,8 +222,12 @@ def test_build_spectrum_super_batch_matches_jax(reads, rounds, threshold, S,
         assert S in sizes and sizes.count(1) > n % S
     if rounds:
         assert stats.sweeps >= 2 and stats.merges > stats.sweeps + 1
-    assert dataclasses.asdict(stats) | {"seconds": 0} == \
-        dataclasses.asdict(jstats) | {"seconds": 0}
+    # the JAX package's counters; the port's deNoise counters beside them
+    # are held against the plain reference in test_torch_denoise_reference
+    want = dataclasses.asdict(jstats) | {"seconds": 0}
+    got = dataclasses.asdict(stats) | {"seconds": 0}
+    assert {f: got[f] for f in want} == want
+    assert stats.rounds == jstats.sweeps - 1  # all but the end sweep
     for a, b in zip(sp.to_host(spec, KEY_BITS), jsp.to_host(jspec, KEY_BITS)):
         np.testing.assert_array_equal(a, b)
     assert spec.n_main == int(jspec.n_main)
