@@ -8,9 +8,9 @@ exits non-zero without printing a result:
 
   0. device: nvidia-smi name and power limit, torch/CUDA versions; no GPU
      is an error.
-  1. build: compiles kernels K1-K9 (csrc/merge_dedup.cu, count_join.cu,
+  1. build: compiles kernels K1-K10 (csrc/merge_dedup.cu, count_join.cu,
      merge128.cu, block_sort.cu, hash_append.cu, stage_windows.cu,
-     node_join.cu, node_probes.cu, contract.cu; hash_append and
+     node_join.cu, node_probes.cu, contract.cu, members.cu; hash_append and
      stage_windows include
      csrc/tile_scan.cuh) from the checkout, one nvcc each, in parallel;
      prints K5's and K6's tiles at their real shapes and for rows of
@@ -55,22 +55,23 @@ exits non-zero without printing a result:
   6. parity: the pipeline CLI (reads -> unitigs -> contigs) on the bench's
      end-to-end shape with --device cpu and --device cuda; unitigs.fa and
      contigs.fa must be byte-identical, the CUDA run must launch every
-     kernel of the path (K1-K3, K5-K9) and the CPU run none; then the
+     kernel of the path (K1-K3, K5-K10) and the CPU run none; then the
      Contiger CLI with --device cuda on the CPU run's .ser, whose
      unitigs.fa must equal the CPU pipeline's and which must launch K2,
-     K3 and K6-K9.
+     K3 and K6-K10.
   7. main path at real size: the pipeline CLI on a 12 Mbp genome (30x of
      150 bp reads); prints the phase breakdown, peak device memory, node,
      unitig and contig counts and N50; the contigs must total within 10%
-     of the genome, every kernel of the path (K1, K2, K3, K5-K9) must
+     of the genome, every kernel of the path (K1, K2, K3, K5-K10) must
      launch, K5 by the stack (fewer launches and append calls than
      batches), K6 once a ``_stage_super`` call with no call of its plain
      chain, K8 once a call of the probe programs (``phantom_candidates``,
      ``build_oriented_graph``), K7 through one table for the run (a build,
      an append a closure round that found phantoms, a probe a round and
      one for the graph) with no one-shot ``join2``, no call of
-     ``node_probes_plain`` or ``join2_plain``, and the contraction
-     through K9 alone (its three calls, no host walk); prints every K7
+     ``node_probes_plain`` or ``join2_plain``, the contraction through
+     K9 alone (its three calls, no host walk) and the members step
+     through K10 alone (one placement, no numpy step); prints every K7
      call's device time; then replays the closure and the graph probe on
      the run's inputs and holds every probe of the table against
      ``join2_plain`` on that round's padded store, and runs the
@@ -202,6 +203,14 @@ exits non-zero without printing a result:
      of 2^20 oriented nodes beside 2^12 cycles (``k9_cases``); then at
      the E. coli cell's oriented extent (2^24, K9_SHAPE), timed as phase
      14 times K5 beside the bound, the plain twin and the host route.
+ 18. K10 (the members of kept paths) against its plain version and the
+     host route's numpy step (``_members_host``) on the card, bitwise:
+     ``k10_cases`` at k = 21, 31, 47 and 63 (paths, cycles, padding rows,
+     a mirrored forest with palindromic heads, cycles only, padding rows
+     alone, M = 2), a padding row forged onto a kept path (refused); then
+     at phase 17's extent (2^24 oriented nodes), timed as phase 14 times
+     K5 beside the bound, the plain version and the numpy step, with its
+     launches on phase 7's main path.
 
 ``python3 chip_smoke.py --nccl-processes N`` runs phases 0, 1 and 11a
 alone at N processes x 1 shard over NCCL, a card each (N cards).
@@ -214,7 +223,8 @@ main path never launches), launches on the mesh path (phase 10c), launches
 summed over the processes of the multi-process path (mp_launches: 11a for
 K1 and K5, 11b for K2, K3, K6, K7 and K8), launches in the bench
 (bench_launches, phase 13), times (K9's at phase 17's cell extent, with
-its parts and the host route's time; K5's at profile.hot's shape, genome_*
+its parts and the host route's time; K10's at the same extent, phase 18,
+with the numpy step's time; K5's at profile.hot's shape, genome_*
 at phase 7's; K6's at phase 7's, stage2_* at the bench's; K7's and K8's at
 the graph shape of phase 16, closure_* at its closure shape, K7's later_*
 at its later closure round of a 2^14 frontier (an append and a probe),
@@ -1346,6 +1356,123 @@ def k9_compare(name, got, want) -> None:
                                  f"route in {bad} entries")
 
 
+def k10_forest(seed: int, n: int, k: int, palindromes: int = 0, **kw):
+    """A chain forest (``k9_forest``) with what the members step reads
+    besides -> (chain_next, hi, lo, real, node_counts) numpy: real where a
+    node is no padding row, counts in [2, 60).  ``palindromes``: that many
+    paths of two nodes or more get a last node whose mirror's k-mer is
+    their head's (a palindromic head: the keep rule keeps both mirrors)."""
+    from sh_assembly_tpu_torch.models import contiger
+    from sh_assembly_tpu_torch.ops import kmerpack_np as kpn
+
+    cn, hi, lo = k9_forest(seed, n, k, **kw)
+    rng = np.random.default_rng(seed + 1)
+    if palindromes:
+        head, _, is_tail = contiger.contract_paths_host(cn)
+        tails = rng.permutation(np.flatnonzero(is_tail))
+        used, done = set(), 0
+        for t in tails:
+            h = int(head[t])
+            if done == palindromes or {h >> 1, t >> 1} & used or \
+                    h >> 1 == t >> 1 or hi[h >> 1] == _SENT64:
+                continue
+            w = (hi[h >> 1:(h >> 1) + 1], lo[h >> 1:(h >> 1) + 1])
+            if h & 1:
+                w = kpn.revcomp_packed(*w, k)
+            if not t & 1:  # the mirror t ^ 1 reads the node reversed
+                w = kpn.revcomp_packed(*w, k)
+            hi[t >> 1], lo[t >> 1] = w[0][0], w[1][0]
+            used |= {h >> 1, t >> 1}
+            done += 1
+        if done != palindromes:
+            raise ValueError(f"{done} paths for {palindromes} palindromes")
+    real = hi != _SENT64
+    counts = rng.integers(2, 60, n).astype(np.int32)
+    return cn, hi, lo, real, counts
+
+
+def k10_cases(large: bool = False):
+    """(name, chain_next, hi, lo, real, node_counts, k) cases of K10's
+    tests, at k = 21, 31, 47 and 63 each: ``k9_cases``' kinds of forest
+    (paths, cycles not starting at their least node, padding rows; a
+    mirrored forest, here with 40 palindromic heads; cycles only; M = 2
+    with a cycle and with none) and a store of padding rows alone, whose
+    kept heads hold no member; ``large``: the E. coli cell's extent
+    (``K9_SHAPE``, 2^24 oriented nodes)."""
+    for k in (21, 31, 47, 63):
+        yield (f"mixed_k{k}", *k10_forest(90 + k, 3000, k, long_paths=(700,),
+                                          cycles=30, cycle_lens=(1, 80)), k)
+        yield (f"mirrored_k{k}", *k10_forest(91 + k, 3000, k, cycles=12,
+                                             mirror=True, palindromes=40), k)
+        yield (f"cycles_k{k}", *k10_forest(92 + k, 2000, k, cycles=60,
+                                           cycle_lens=(1, 200), pad=0.0), k)
+        yield (f"no_member_k{k}", *k10_forest(93 + k, 500, k, pad=1.0), k)
+        hi, lo = _rand_kmers(np.random.default_rng(94 + k), 1, k)
+        one = (np.ones(1, bool), np.array([7], np.int32))
+        yield f"m2_cycle_k{k}", np.array([1, 0], np.int32), hi, lo, *one, k
+        yield f"m2_none_k{k}", np.array([-1, -1], np.int32), hi, lo, *one, k
+    if large:
+        s = K9_SHAPE
+        yield ("cell_extent", *k10_forest(
+            s["seed"], s["nodes"], s["k"], lens=s["lens"],
+            long_paths=s["long_paths"], cycles=s["cycles"], pad=s["pad"],
+            mirror=True), s["k"])
+
+
+def k10_host(chain_next, hi, lo, real, counts, k: int):
+    """The host route's members step on a k10_cases case: the native walk,
+    numpy's keep rule, then ``_members_host`` -> its ``_Members`` (None
+    where no path has a member)."""
+    from sh_assembly_tpu_torch.models import contiger
+
+    head, dist, keep, rhi, rlo = k9_host(chain_next, hi, lo, k)
+    return contiger._members_host(hi, lo, rhi, rlo, real, counts, head,
+                                  dist, keep, k)
+
+
+def k10_inputs(chain_next, hi, lo, real, counts, k: int, device):
+    """K10's inputs from a k10_cases case on ``device``: on a GPU K9's own
+    ranking (its tail_of), reverse complements and keep rule; on the CPU
+    K9's plain twin and ``members_cuda.tails``."""
+    import torch
+
+    from sh_assembly_tpu_torch.ops import bits, contract_cuda, members_cuda
+
+    cn = torch.from_numpy(chain_next).to(device)
+    h, l = bits.from_u64_np(hi, device), bits.from_u64_np(lo, device)
+    if cn.is_cuda:
+        head, dist, tail_of, _ = contract_cuda.rank_cuda(cn)
+        rhi, rlo = contract_cuda.revcomp_cuda(h, l, k)
+        keep = contract_cuda.keep_cuda(head, tail_of, h, l, rhi, rlo)
+    else:
+        head, dist, keep, rhi, rlo, _ = contract_cuda.contract_plain(cn, h,
+                                                                     l, k)
+        tail_of = members_cuda.tails(cn, head)
+    return (head, dist, tail_of, keep, h, l, rhi, rlo,
+            torch.from_numpy(real).to(device),
+            torch.from_numpy(counts).to(device))
+
+
+def k10_compare(name, got, want) -> None:
+    """K10's or its plain version's outputs (tensors), as the host assembly
+    reads them (``_members_to_host``), against ``k10_host``'s, bitwise."""
+    from sh_assembly_tpu_torch.models import contiger
+
+    got = contiger._members_to_host(got)
+    if (got is None) != (want is None):
+        raise AssertionError(f"K10 on {name}: members "
+                             f"{'none' if got is None else 'some'}, the "
+                             f"host step {'none' if want is None else 'some'}")
+    if got is None:
+        return
+    for f, a, b in zip(want._fields, got, want):
+        if a.dtype != b.dtype or a.shape != b.shape or \
+                not np.array_equal(a, b):
+            bad = int((a != b).sum()) if a.shape == b.shape else "all"
+            raise AssertionError(f"K10 on {name}: {f} differs from the host "
+                                 f"step in {bad} entries")
+
+
 def _merged_spectrum(store, n, key_bits):
     """A merged Spectrum around a packed store with n live entries."""
     import torch
@@ -1428,8 +1555,8 @@ def phase1_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from sh_assembly_tpu_torch.ops import _build, blocksort_cuda, \
-        contract_cuda, hash_append_cuda, join_cuda, merge128_cuda, \
-        merge_cuda, node_join_cuda, probe_cuda, stage_cuda
+        contract_cuda, hash_append_cuda, join_cuda, members_cuda, \
+        merge128_cuda, merge_cuda, node_join_cuda, probe_cuda, stage_cuda
 
     print("== phase 1: build", flush=True)
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)  # build from source
@@ -1437,13 +1564,13 @@ def phase1_build():
     # one nvcc per source, all started together
     mods = (merge_cuda, join_cuda, merge128_cuda, blocksort_cuda,
             hash_append_cuda, stage_cuda, node_join_cuda, probe_cuda,
-            contract_cuda)
+            contract_cuda, members_cuda)
     with ThreadPoolExecutor(len(mods)) as ex:
         for f in [ex.submit(m.build) for m in mods]:
             f.result()
     for name in ("merge_dedup", "count_join", "merge128", "block_sort",
                  "hash_append", "stage_windows", "node_join", "node_probes",
-                 "contract"):
+                 "contract", "members"):
         print(f"built {name} (sm_90a) -> {_build.lib_path(name)}")
     print(f"  all kernels built in {time.time() - t0:.2f} s")
     # K5's and K6's tiles: their real stacks (8 x 8192 rows) and a long row
@@ -1933,13 +2060,14 @@ def _spies(*targets):
 
 def _launch_counters():
     from sh_assembly_tpu_torch.ops import contract_cuda, hash_append_cuda, \
-        join_cuda, merge128_cuda, merge_cuda, node_join_cuda, probe_cuda, \
-        stage_cuda
+        join_cuda, members_cuda, merge128_cuda, merge_cuda, node_join_cuda, \
+        probe_cuda, stage_cuda
 
     return {"merge_dedup": merge_cuda, "count_join": join_cuda,
             "merge128": merge128_cuda, "hash_append": hash_append_cuda,
             "stage_windows": stage_cuda, "node_join": node_join_cuda,
-            "node_probes": probe_cuda, "contract": contract_cuda}
+            "node_probes": probe_cuda, "contract": contract_cuda,
+            "members": members_cuda}
 
 
 def _reset_launches():
@@ -2009,9 +2137,9 @@ def phase6_pipeline_parity():
                              "the CPU pipeline's")
     if not all(launches[n] for n in ("count_join", "merge128",
                                      "stage_windows", "node_join",
-                                     "node_probes", "contract")):
-        raise AssertionError(f"K2, K3, K6, K7, K8 or K9 never launched in "
-                             f"cli.contiger: {launches}")
+                                     "node_probes", "contract", "members")):
+        raise AssertionError(f"K2, K3, K6, K7, K8, K9 or K10 never launched "
+                             f"in cli.contiger: {launches}")
     print("  cli.contiger's CUDA unitigs.fa byte-identical to the CPU "
           "pipeline's")
 
@@ -2077,7 +2205,8 @@ def phase7_genome():
                     (contiger, "phantom_candidates"),
                     (contiger, "build_oriented_graph"), (kp, "join2"),
                     (kp, "join2_plain"),
-                    (probe_cuda, "node_probes_plain")) as calls, \
+                    (probe_cuda, "node_probes_plain"),
+                    (contiger, "_members_host")) as calls, \
                 prof_nj.timed_calls() as k7_calls:
             _, logtxt, wall = _run_cli(GENOME_FLAGS + [
                 "-i", os.path.join(d, "ReadFiles.txt"),
@@ -2088,7 +2217,7 @@ def phase7_genome():
         contiger.close_over_phantoms = real_closure
         contiger.finalize_unitigs = real_finalize
     fallback, host_walks, supers, plain, closure, graph, joins, joins_plain, \
-        probes_plain = calls
+        probes_plain, host_members = calls
     launches = _launches()
     kinds = dict(node_join_cuda.KINDS)
     peak = torch.cuda.max_memory_allocated()
@@ -2098,6 +2227,10 @@ def phase7_genome():
                              f"keep rule): {launches['contract']} calls into "
                              f"its library, {host_walks} native and "
                              f"{fallback} torch walks")
+    if host_members or launches["members"] != 1:
+        raise AssertionError(f"the members step did not run through K10 "
+                             f"alone (one placement): {launches['members']} "
+                             f"placements, {host_members} numpy steps")
     print("  phase breakdown:")
     for name, s in sorted(profiling.GLOBAL.stats.items(),
                           key=lambda kv: -kv[1].seconds):
@@ -2615,10 +2748,12 @@ def phase10_mesh():
         if "[Contiger/sharded]" in line and "shards" in line:
             print("  " + line.split("] ", 1)[-1])
     # the mesh's tail (finish_parts) contracts its numpy forest on the host
-    if not all(v for n, v in launches.items() if n != "contract") or \
-            launches["contract"]:
+    # and takes the numpy members step
+    host = ("contract", "members")
+    if not all(v for n, v in launches.items() if n not in host) or \
+            any(launches[n] for n in host):
         raise AssertionError(f"a kernel never launched on the mesh path, or "
-                             f"K9 did: {launches}")
+                             f"K9 or K10 did: {launches}")
     k = GENOME_FLAGS[1]
     buf = io.StringIO()
     t0 = time.time()
@@ -3540,6 +3675,91 @@ def phase17_k9(device):
     return t9
 
 
+def phase18_k10(device, main_launches: int):
+    """K10 against its plain version and the host route's numpy step,
+    bitwise, on its cases and at phase 17's extent, timed there beside
+    them; a forest with a padding row on a kept path must raise.  Returns
+    its timing, with ``main_launches``, its launches on phase 7's main
+    path."""
+    import torch
+
+    from sh_assembly_tpu_torch.ops import members_cuda
+
+    print("== phase 18: K10 (members) against its plain version and the "
+          "host route's numpy step", flush=True)
+    before = members_cuda.LAUNCHES
+    names = []
+    for name, *case in k10_cases():
+        want = k10_host(*case)
+        args = k10_inputs(*case, device)
+        k10_compare(name, members_cuda.members_cuda(*args, case[-1]), want)
+        k10_compare(name, members_cuda.members_plain(*args, case[-1]), want)
+        names.append(name)
+    if members_cuda.LAUNCHES - before != len(names):
+        raise AssertionError(f"{members_cuda.LAUNCHES - before} placements "
+                             f"through K10's library for {len(names)} cases")
+    args = list(k10_inputs(*dict((c[0], c[1:]) for c in k10_cases())[
+        "mirrored_k47"], device))
+    head, dist, keep = args[0], args[1], args[3]
+    a = int(torch.nonzero(keep[head.long()] & (dist > 0))[0, 0])
+    args[8] = args[8].clone()
+    args[8][a >> 1] = False
+    try:
+        members_cuda.members_cuda(*args, 47)
+    except ValueError as e:
+        print(f"  a padding row on a kept path: refused ({e})")
+    else:
+        raise AssertionError("K10 placed a path holding a padding row")
+    print(f"  K10: {len(names)} cases identical to the host route's step and "
+          f"the plain version ({', '.join(names)})")
+
+    name, *case = next(c for c in k10_cases(large=True)
+                       if c[0] == "cell_extent")
+    cn, hi, lo, real, counts, k = case
+    from sh_assembly_tpu_torch.models import contiger
+
+    head_h, dist_h, keep_h, rhi_h, rlo_h = k9_host(cn, hi, lo, k)
+    t0 = time.perf_counter()
+    want = contiger._members_host(hi, lo, rhi_h, rlo_h, real, counts, head_h,
+                                  dist_h, keep_h, k)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    args = k10_inputs(*case, device)
+    M, Np = len(cn), len(hi)
+    k10_compare("the cell's extent", members_cuda.members_cuda(*args, k),
+                want)
+    plain_ms = _time_ms(lambda: members_cuda.members_plain(*args, k), 3)
+    k10_compare("the cell's extent (plain)",
+                members_cuda.members_plain(*args, k), want)
+    head, dist, tail_of, keep, *_, real_t, _ = args
+    tot, _, _ = members_cuda.count_cuda(keep, real_t, dist, tail_of)
+    n_mem, n_paths = tot.tolist()
+
+    def launches():  # the two entries, queued with the totals known
+        _, bs, bf = members_cuda.count_cuda(keep, real_t, dist, tail_of)
+        members_cuda.place_cuda(*args, k, bs, bf, n_mem, n_paths)
+
+    ms = _queued_ms(launches, 10)
+    wms = _time_ms(lambda: members_cuda.members_cuda(*args, k), 3)
+    # keep, head and dist read, off written and read (17 B an oriented
+    # slot); real read; each member's words and count read and its row
+    # written (45 B); each path's start and head written
+    moved = 17 * M + Np + 45 * n_mem + 8 * n_paths
+    t10 = dict(ms=ms, wrapper_ms=wms, plain_ms=plain_ms, library_ms=None,
+               host_ms=host_ms, moved=moved, oriented_nodes=M,
+               members=n_mem, paths=n_paths, main_launches=main_launches,
+               **bound(moved, 0))
+    del args, head, dist, tail_of, keep, real_t
+    torch.cuda.empty_cache()
+    print(f"  K10 at the cell's extent ({M} oriented nodes, {n_mem} members "
+          f"of {n_paths} kept paths): identical; device {ms:.4f} ms (a "
+          f"wrapper call {wms:.4f} ms, its two reads included), plain "
+          f"{plain_ms:.3f} ms, the host route's numpy step {host_ms:.1f} ms, "
+          f"bound {t10['bound_ms']:.4f} ms ({t10['bound_by']}, "
+          f"{moved / 1e9:.3f} GB); {main_launches} placement(s) on phase 7's "
+          f"main path", flush=True)
+    return t10
+
+
 def phase12_profiles():
     """The profiling entry points of the counting hot path and the
     Contiger at their defaults (``profile.{entry,hot,collect,stage2}``)."""
@@ -3640,6 +3860,7 @@ def main() -> int:
         err6, timing6 = phase15_k6(dev)
         timing16 = phase16_k7_k8(dev)
         timing["contract"] = phase17_k9(dev)
+        timing["members"] = phase18_k10(dev, launches["members"])
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     loaded = [m for m in sys.modules
@@ -3708,7 +3929,11 @@ def main() -> int:
              "sh_assembly_tpu/models/contiger.py:766 contract_paths, :1102 "
              "_path_summary_np and sh_assembly_tpu/ops/kmerpack.py:86 "
              "revcomp_packed (run on the host there: cpp/contract.cpp and "
-             "numpy; not a pl.pallas_call)", 0, pipeline)]
+             "numpy; not a pl.pallas_call)", 0, pipeline),
+            ("members", "members",
+             "sh_assembly_tpu/models/contiger.py:1123 _finalize_host, its "
+             "members step (:1131-1167: mask, np.lexsort, gathers; numpy on "
+             "the host there, not a pl.pallas_call)", 0, pipeline)]
     print(smi)  # the card and its power limit again, beside the numbers
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",

@@ -23,8 +23,9 @@ and the same output (``unitigs.fa`` byte-identical):
      chain edges.
   D. contraction where the chain forest lies: on the card, kernel K9
      (``ops/contract_cuda``: the ranking, the reverse complements and the
-     mirror keep rule), on the host ``cpp/contract.cpp`` and numpy; then
-     the vectorised host assembly: sequences, medians, links, the
+     mirror keep rule) and kernel K10 (``ops/members_cuda``: the kept
+     paths' members in order), on the host ``cpp/contract.cpp`` and numpy;
+     then the vectorised host assembly: sequences, medians, links, the
      solid-seed component filter, FASTA.  Copied from the JAX package;
      every device array reaches it as numpy uint64 through
      ``bits.to_u64_np``, because the assembly compares k-mer words
@@ -43,7 +44,7 @@ sentinel; seed flags are uint8 (1 = some read's middle k-mer).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Iterable
+from typing import Iterable, NamedTuple
 
 import numpy as np
 import torch
@@ -51,8 +52,8 @@ import torch
 from .. import config as cfg
 from ..io import fastq
 from ..ops import bits, contract_cuda, kmerpack as kp, kmerpack_np as kpn, \
-    merge128_cuda, node_join_cuda, packio, probe_cuda, spectrum as sp, \
-    stage_cuda
+    members_cuda, merge128_cuda, node_join_cuda, packio, probe_cuda, \
+    spectrum as sp, stage_cuda
 from ..utils import dna, profiling
 from ..utils.logging import log
 
@@ -857,15 +858,18 @@ def finalize_unitigs(
     cross to the host here, k-mer words as uint64 (bits.to_u64_np): the
     assembly orders them with numpy's unsigned comparisons.
 
-    The contraction runs where chain_next lies: a CUDA tensor on the card
-    (kernel K9, ``_contract_on_card``), numpy or a CPU tensor on the host
-    (``contract_paths_host``, numpy's reverse complements and keep rule).
+    The contraction and the members step run where chain_next lies: a CUDA
+    tensor on the card (kernel K9, ``_contract_on_card``, then kernel K10,
+    ``_members_on_card``), numpy or a CPU tensor on the host
+    (``contract_paths_host``, numpy's reverse complements and keep rule,
+    then ``_members_host``).  Both hand the same arrays to the rest of the
+    host assembly (``_finalize_host``).
     """
     k = params.k
+    on_card = isinstance(chain_next, torch.Tensor) and chain_next.is_cuda
     with profiling.phase("contiger:contract"):
-        if isinstance(chain_next, torch.Tensor) and chain_next.is_cuda:
-            hi_np, lo_np, rhi_np, rlo_np, head, dist, keep = \
-                _contract_on_card(hi, lo, chain_next, k)
+        if on_card:
+            forest = _contract_on_card(hi, lo, chain_next, k)
         else:
             with profiling.phase("contiger:contract.d2h", sync=False):
                 if isinstance(chain_next, torch.Tensor):
@@ -880,17 +884,27 @@ def finalize_unitigs(
                 keep = _path_summary_np(head, is_tail, hi_np, lo_np,
                                         rhi_np, rlo_np)
     with profiling.phase("contiger:host assembly"):
-        return _finalize_host(hi_np, lo_np, rhi_np, rlo_np, real,
-                              node_counts.cpu().numpy(), head, dist, keep,
-                              params, is_seed)
+        if on_card:
+            with profiling.phase("contiger:host assembly.members",
+                                 sync=False):
+                mem = _members_on_card(forest, hi, lo, real, node_counts, k)
+        else:
+            counts_np = node_counts.cpu().numpy()
+            with profiling.phase("contiger:host assembly.members",
+                                 sync=False):
+                mem = _members_host(hi_np, lo_np, rhi_np, rlo_np, real,
+                                    counts_np, head, dist, keep, k)
+        if mem is None:
+            return ArrayUnitigs.empty(k)
+        return _finalize_host(mem, params, is_seed)
 
 
 def _contract_on_card(hi, lo, chain_next, k: int):
-    """Kernel K9 on the forest where it lies; only what the host assembly
-    reads crosses, once, after the launches: the node words and their
-    reverse complements as uint64, head, dist and keep.  Nothing here
-    synchronises but the copies, so the step spans time the launches and
-    ``.d2h`` waits for K9.  -> (hi, lo, rhi, rlo, head, dist, keep) numpy."""
+    """Kernel K9 on the forest where it lies.  Nothing crosses but n_bad,
+    read in ``.d2h`` (which so waits for K9): the ranking, the keep rule
+    and the reverse complements stay on the card for K10.  Nothing else
+    synchronises, so the step spans time the launches.  -> (head, dist,
+    tail_of, keep, rhi, rlo) tensors."""
     contract_cuda.check(chain_next, hi, lo, k)
     with profiling.phase("contiger:contract.walk", sync=False):
         with profiling.phase("contiger:contract.walk.k9", sync=False):
@@ -900,12 +914,94 @@ def _contract_on_card(hi, lo, chain_next, k: int):
     with profiling.phase("contiger:contract.keep rule", sync=False):
         keep = contract_cuda.keep_cuda(head, tail_of, hi, lo, rhi, rlo)
     with profiling.phase("contiger:contract.d2h", sync=False):
-        out = [bits.to_u64_np(w) for w in (hi, lo, rhi, rlo)] + \
-            [t.cpu().numpy() for t in (head, dist, keep, n_bad)]
-    if out[-1][0]:
-        raise ValueError(f"chain_next: {out[-1][0]} targets out of range or "
+        n_bad = int(n_bad.item())
+    if n_bad:
+        raise ValueError(f"chain_next: {n_bad} targets out of range or "
                          f"shared by two nodes")
-    return out[:-1]
+    return head, dist, tail_of, keep, rhi, rlo
+
+
+class _Members(NamedTuple):
+    """The members of kept oriented paths in (head, dist) order, as the
+    host assembly reads them (numpy)."""
+
+    ai: np.ndarray  # int64 oriented index
+    node_i: np.ndarray  # int64 ai >> 1
+    ohi: np.ndarray  # uint64 oriented k-mer
+    olo: np.ndarray
+    lastb: np.ndarray  # uint8 its last base
+    counts_mem: np.ndarray  # int64 its node's count
+    starts: np.ndarray  # int64 [P] each path's first member
+    lens: np.ndarray  # int64 [P]
+    tail_pos: np.ndarray  # int64 [P] each path's last member
+    head_idx: np.ndarray  # int64 [P] each path's head
+
+
+def _members_host(hi, lo, rhi, rlo, real, node_counts, head, dist, keep,
+                  k: int) -> _Members | None:
+    """The members step in numpy (the JAX package's): mask, lexsort by
+    (head, dist), gathers.  None where no kept path has a member."""
+    a = np.arange(2 * hi.shape[0], dtype=np.int64)
+    keep_np = np.asarray(keep)
+    head_np = np.asarray(head)
+    member = keep_np[head_np]
+    member &= real[a >> 1]  # drop sentinel padding nodes
+    heads = head_np[member].astype(np.int64)
+    dists = np.asarray(dist)[member]
+    ai = a[member]
+    node_i = ai >> 1
+    orient = ai & 1
+    if len(heads) == 0:
+        return None
+
+    order = np.lexsort((dists, heads))
+    heads, node_i, orient, ai = (
+        heads[order], node_i[order], orient[order], ai[order])
+
+    counts_np = np.asarray(node_counts).astype(np.int64)
+    hi_np, lo_np = np.asarray(hi), np.asarray(lo)
+    rhi_np, rlo_np = np.asarray(rhi), np.asarray(rlo)
+
+    # oriented packed kmers + per-member data
+    ohi = np.where(orient == 0, hi_np[node_i], rhi_np[node_i])
+    olo = np.where(orient == 0, lo_np[node_i], rlo_np[node_i])
+    lastb = kpn.last_base(ohi, olo, k)
+    counts_mem = counts_np[node_i]
+
+    starts = np.flatnonzero(
+        np.r_[True, heads[1:] != heads[:-1]]).astype(np.int64)
+    lens = np.diff(np.r_[starts, len(heads)])
+    tail_pos = starts + lens - 1
+    return _Members(ai, node_i, ohi, olo, lastb, counts_mem, starts, lens,
+                    tail_pos, heads[starts])
+
+
+def _members_on_card(forest, hi, lo, real, node_counts, k: int):
+    """Kernel K10 on K9's forest where it lies, then one copy of each
+    member-ordered array.  None where no kept path has a member."""
+    head, dist, tail_of, keep, rhi, rlo = forest
+    real_t = torch.from_numpy(np.ascontiguousarray(real, dtype=bool)).to(
+        hi.device)
+    with profiling.phase("contiger:host assembly.members.k10", sync=False):
+        placed = members_cuda.members_cuda(head, dist, tail_of, keep, hi, lo,
+                                           rhi, rlo, real_t, node_counts, k)
+    return _members_to_host(placed)
+
+
+def _members_to_host(placed) -> _Members | None:
+    """K10's (or its plain version's) member-ordered tensors -> the arrays
+    ``_members_host`` gives.  None where there is no member."""
+    ai_t, ohi, olo, lastb, counts, starts, head_idx = placed
+    if ai_t.numel() == 0:
+        return None
+    ai = ai_t.cpu().numpy().astype(np.int64)
+    starts = starts.cpu().numpy().astype(np.int64)
+    lens = np.diff(np.r_[starts, len(ai)])
+    return _Members(ai, ai >> 1, bits.to_u64_np(ohi), bits.to_u64_np(olo),
+                    lastb.cpu().numpy(),
+                    counts.cpu().numpy().astype(np.int64), starts, lens,
+                    starts + lens - 1,
+                    head_idx.cpu().numpy().astype(np.int64))
 
 
 def _path_summary_np(head, is_tail, hi, lo, rhi, rlo):
@@ -929,45 +1025,13 @@ def _path_summary_np(head, is_tail, hi, lo, rhi, rlo):
     return is_head & ((h_hi < m_hi) | ((h_hi == m_hi) & (h_lo <= m_lo)))
 
 
-def _finalize_host(hi, lo, rhi, rlo, real, node_counts,
-                   head, dist, keep, params, is_seed=None):
+def _finalize_host(mem: _Members, params, is_seed=None):
+    """The host assembly after the members step: mirror dedup, medians,
+    links, components, sequences."""
     k = params.k
-    Np = hi.shape[0]
-
-    # ---- members of kept oriented paths, sorted by (head, dist) ----------
-    with profiling.phase("contiger:host assembly.members", sync=False):
-        a = np.arange(2 * Np, dtype=np.int64)
-        keep_np = np.asarray(keep)
-        head_np = np.asarray(head)
-        member = keep_np[head_np]
-        member &= real[a >> 1]  # drop sentinel padding nodes
-        heads = head_np[member].astype(np.int64)
-        dists = np.asarray(dist)[member]
-        ai = a[member]
-        node_i = ai >> 1
-        orient = ai & 1
-        if len(heads) == 0:
-            return ArrayUnitigs.empty(k)
-
-        order = np.lexsort((dists, heads))
-        heads, node_i, orient, ai = (
-            heads[order], node_i[order], orient[order], ai[order])
-
-        counts_np = np.asarray(node_counts).astype(np.int64)
-        hi_np, lo_np = np.asarray(hi), np.asarray(lo)
-        rhi_np, rlo_np = np.asarray(rhi), np.asarray(rlo)
-
-        # oriented packed kmers + per-member data
-        ohi = np.where(orient == 0, hi_np[node_i], rhi_np[node_i])
-        olo = np.where(orient == 0, lo_np[node_i], rlo_np[node_i])
-        lastb = kpn.last_base(ohi, olo, k)
-        counts_mem = counts_np[node_i]
-
-        starts = np.flatnonzero(
-            np.r_[True, heads[1:] != heads[:-1]]).astype(np.int64)
-        lens = np.diff(np.r_[starts, len(heads)])
-        P = len(starts)
-        tail_pos = starts + lens - 1
+    ai, node_i, ohi, olo, lastb, counts_mem, starts, lens, tail_pos, \
+        head_idx = mem
+    P = len(starts)
 
     # ---- mirror dedup on oriented indices --------------------------------
     with profiling.phase("contiger:host assembly.dedup", sync=False):
@@ -976,7 +1040,6 @@ def _finalize_host(hi, lo, rhi, rlo, real, node_counts,
         # EQUAL, which happens exactly when the unitig is palindromic-headed.
         # The unordered pair {head, flip(tail)} identifies a mirror pair
         # exactly, so dedup on it is collision-free.
-        head_idx = heads[starts]
         mirror_idx = ai[tail_pos] ^ 1
         pk_lo = np.minimum(head_idx, mirror_idx).astype(np.uint64)
         pk_hi = np.maximum(head_idx, mirror_idx).astype(np.uint64)
