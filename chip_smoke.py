@@ -70,13 +70,13 @@ exits non-zero without printing a result:
      an append a closure round that found phantoms, a probe a round and
      one for the graph) with no one-shot ``join2``, no call of
      ``node_probes_plain`` or ``join2_plain``, the contraction through
-     K9 alone (its three calls, no host walk) and the members step
-     through K10 alone (one placement, no numpy step); prints every K7
-     call's device time; then replays the closure and the graph probe on
-     the run's inputs and holds every probe of the table against
-     ``join2_plain`` on that round's padded store, and runs the
-     contraction's host route on the run's own forest, whose unitigs.fa
-     must be the CUDA run's, byte for byte.
+     K9 (its three calls) and the members step through K10 (one
+     placement); prints every K7 call's device time; then replays the
+     closure and the graph probe on the run's inputs and holds every
+     probe of the table against ``join2_plain`` on that round's padded
+     store, and runs ``finalize_unitigs`` on the run's own forest moved
+     to the CPU (the plain twins), whose unitigs.fa must be the CUDA
+     run's, byte for byte.
 
   8. K4 (window sort) against its plain PyTorch version on the card,
      bitwise: windows of 2^7 to 2^19 values (several windows in a block,
@@ -110,7 +110,9 @@ exits non-zero without printing a result:
      --mesh 4: the unitigs the same set as phase 7's (cli.compare_contigs)
      and cli.minia's contigs within 10% of the genome, with phase
      breakdowns, peaks and K1-K3 and K5 launches (the mesh's counter
-     hashes through K5, one launch a shard a scan); each counting line
+     hashes through K5, one launch a shard a scan), and the mesh's tail
+     through K9 (three calls) and K10 (one placement) as the single
+     store's; each counting line
      prints count:mesh scan and K5's launches; (d) profile.mesh (routed
      against one shard alone, n = 8) and dryrun_multichip(8).
  11. the multi-process mesh (``collectives.Distributed`` over
@@ -196,21 +198,20 @@ exits non-zero without printing a result:
      2^24 nodes against profile.stage2's spectrum (probes, node join,
      count join with its library sort, the rest), its peak, and one
      closure round.
- 17. K9 (contraction) against the host route (the native walk, numpy's
-     reverse complements and keep rule) and its plain twin on the card,
+ 17. K9 (contraction) against its plain twins (``rank_plain``,
+     ``revcomp_packed``, ``keep_plain``) on the CPU and on the card,
      bitwise: paths, cycles with and without a splitter, padding rows, a
      mirrored forest, cycles only, no edge, M = 2, k = 21 to 63, one path
      of 2^20 oriented nodes beside 2^12 cycles (``k9_cases``); then at
      the E. coli cell's oriented extent (2^24, K9_SHAPE), timed as phase
-     14 times K5 beside the bound, the plain twin and the host route.
- 18. K10 (the members of kept paths) against its plain version and the
-     host route's numpy step (``_members_host``) on the card, bitwise:
-     ``k10_cases`` at k = 21, 31, 47 and 63 (paths, cycles, padding rows,
-     a mirrored forest with palindromic heads, cycles only, padding rows
-     alone, M = 2), a padding row forged onto a kept path (refused); then
-     at phase 17's extent (2^24 oriented nodes), timed as phase 14 times
-     K5 beside the bound, the plain version and the numpy step, with its
-     launches on phase 7's main path.
+     14 times K5 beside the bound and the plain twins on the card.
+ 18. K10 (the members of kept paths) against its plain twin on the CPU
+     and on the card, bitwise: ``k10_cases`` at k = 21, 31, 47 and 63
+     (paths, cycles, padding rows, a mirrored forest with palindromic
+     heads, cycles only, padding rows alone, M = 2), a padding row forged
+     onto a kept path (refused); then at phase 17's extent (2^24 oriented
+     nodes), timed as phase 14 times K5 beside the bound and the plain
+     twin on the card, with its launches on phase 7's main path.
 
 ``python3 chip_smoke.py --nccl-processes N`` runs phases 0, 1 and 11a
 alone at N processes x 1 shard over NCCL, a card each (N cards).
@@ -223,8 +224,8 @@ main path never launches), launches on the mesh path (phase 10c), launches
 summed over the processes of the multi-process path (mp_launches: 11a for
 K1 and K5, 11b for K2, K3, K6, K7 and K8), launches in the bench
 (bench_launches, phase 13), times (K9's at phase 17's cell extent, with
-its parts and the host route's time; K10's at the same extent, phase 18,
-with the numpy step's time; K5's at profile.hot's shape, genome_*
+its parts; K10's at the same extent, phase 18; K5's at profile.hot's
+shape, genome_*
 at phase 7's; K6's at phase 7's, stage2_* at the bench's; K7's and K8's at
 the graph shape of phase 16, closure_* at its closure shape, K7's later_*
 at its later closure round of a 2^14 frontier (an append and a probe),
@@ -1324,36 +1325,48 @@ def k9_cases(large: bool = False):
                                        pad=0.1), 47)
 
 
-def k9_host(chain_next, hi, lo, k: int):
-    """The host route's contraction of a k9_cases forest (numpy in and out:
-    the native walk, numpy's reverse complements, the keep rule) -> (head,
-    dist, keep, rhi, rlo)."""
-    from sh_assembly_tpu_torch.models import contiger
-    from sh_assembly_tpu_torch.ops import kmerpack_np as kpn
-
-    head, dist, is_tail = contiger.contract_paths_host(chain_next)
-    rhi, rlo = kpn.revcomp_packed(hi, lo, k)
-    keep = contiger._path_summary_np(head, is_tail, hi, lo, rhi, rlo)
-    return head, dist, keep, rhi, rlo
-
-
-def k9_compare(name, got, want) -> None:
-    """K9's or its plain twin's outputs (tensors) against ``k9_host``'s,
-    bitwise, with n_bad 0."""
+def k9_numpy(out):
+    """``contract_cuda.contract``'s outputs (tensors, n_bad last) -> the
+    form of ``k9_host``: numpy, k-mer words uint64, tail_of -1 off the
+    heads (where K9 leaves scratch)."""
     import torch
 
     from sh_assembly_tpu_torch.ops import bits
 
-    *got, n_bad = got
-    if int(n_bad.item()) != 0:
-        raise AssertionError(f"K9 on {name}: n_bad {int(n_bad.item())}")
-    for f, a, b in zip(("head", "dist", "keep", "rhi", "rlo"), got, want):
-        a = bits.to_u64_np(a) if a.dtype == torch.int64 else a.cpu().numpy()
+    got = [bits.to_u64_np(a) if a.dtype == torch.int64 else a.cpu().numpy()
+           for a in out[:-1]]
+    got[2] = np.where(got[0] != np.arange(len(got[0])), -1,
+                      got[2]).astype(np.int32)
+    return tuple(got)
+
+
+def k9_host(chain_next, hi, lo, k: int):
+    """The plain twins' contraction of a k9_cases forest on the CPU (numpy
+    in and out; tier-1 holds them against the JAX package) -> (head, dist,
+    tail_of, keep, rhi, rlo), as ``k9_numpy`` gives them."""
+    import torch
+
+    from sh_assembly_tpu_torch.ops import bits, contract_cuda
+
+    cpu = torch.device("cpu")
+    return k9_numpy(contract_cuda.contract(
+        torch.from_numpy(chain_next), bits.from_u64_np(hi, cpu),
+        bits.from_u64_np(lo, cpu), k))
+
+
+def k9_compare(name, got, want) -> None:
+    """K9's or its plain twins' outputs (``contract``'s tensors) against
+    ``k9_host``'s, bitwise (tail_of at the heads), with n_bad 0."""
+    n_bad = int(got[-1].item())
+    if n_bad != 0:
+        raise AssertionError(f"K9 on {name}: n_bad {n_bad}")
+    for f, a, b in zip(("head", "dist", "tail_of", "keep", "rhi", "rlo"),
+                       k9_numpy(got), want):
         if a.dtype != b.dtype or a.shape != b.shape or \
                 not np.array_equal(a, b):
             bad = int((a != b).sum()) if a.shape == b.shape else "all"
-            raise AssertionError(f"K9 on {name}: {f} differs from the host "
-                                 f"route in {bad} entries")
+            raise AssertionError(f"K9 on {name}: {f} differs from the plain "
+                                 f"twins in {bad} entries")
 
 
 def k10_forest(seed: int, n: int, k: int, palindromes: int = 0, **kw):
@@ -1362,14 +1375,13 @@ def k10_forest(seed: int, n: int, k: int, palindromes: int = 0, **kw):
     node is no padding row, counts in [2, 60).  ``palindromes``: that many
     paths of two nodes or more get a last node whose mirror's k-mer is
     their head's (a palindromic head: the keep rule keeps both mirrors)."""
-    from sh_assembly_tpu_torch.models import contiger
     from sh_assembly_tpu_torch.ops import kmerpack_np as kpn
 
     cn, hi, lo = k9_forest(seed, n, k, **kw)
     rng = np.random.default_rng(seed + 1)
     if palindromes:
-        head, _, is_tail = contiger.contract_paths_host(cn)
-        tails = rng.permutation(np.flatnonzero(is_tail))
+        head, _, tail_of, *_ = k9_host(cn, hi, lo, k)
+        tails = rng.permutation(np.sort(tail_of[tail_of >= 0]))
         used, done = set(), 0
         for t in tails:
             h = int(head[t])
@@ -1420,41 +1432,34 @@ def k10_cases(large: bool = False):
 
 
 def k10_host(chain_next, hi, lo, real, counts, k: int):
-    """The host route's members step on a k10_cases case: the native walk,
-    numpy's keep rule, then ``_members_host`` -> its ``_Members`` (None
-    where no path has a member)."""
+    """The plain twins' members step on a k10_cases case, on the CPU (tier-1
+    holds them against the JAX package) -> the ``_Members`` the host
+    assembly reads (None where no path has a member)."""
     from sh_assembly_tpu_torch.models import contiger
+    from sh_assembly_tpu_torch.ops import members_cuda
 
-    head, dist, keep, rhi, rlo = k9_host(chain_next, hi, lo, k)
-    return contiger._members_host(hi, lo, rhi, rlo, real, counts, head,
-                                  dist, keep, k)
+    args = k10_inputs(chain_next, hi, lo, real, counts, k, "cpu")
+    return contiger._members_to_host(members_cuda.members(*args, k))
 
 
 def k10_inputs(chain_next, hi, lo, real, counts, k: int, device):
-    """K10's inputs from a k10_cases case on ``device``: on a GPU K9's own
-    ranking (its tail_of), reverse complements and keep rule; on the CPU
-    K9's plain twin and ``members_cuda.tails``."""
+    """K10's inputs from a k10_cases case on ``device``: the contraction
+    there (``contract_cuda.contract``: K9 on a GPU, its twins otherwise)."""
     import torch
 
-    from sh_assembly_tpu_torch.ops import bits, contract_cuda, members_cuda
+    from sh_assembly_tpu_torch.ops import bits, contract_cuda
 
     cn = torch.from_numpy(chain_next).to(device)
     h, l = bits.from_u64_np(hi, device), bits.from_u64_np(lo, device)
-    if cn.is_cuda:
-        head, dist, tail_of, _ = contract_cuda.rank_cuda(cn)
-        rhi, rlo = contract_cuda.revcomp_cuda(h, l, k)
-        keep = contract_cuda.keep_cuda(head, tail_of, h, l, rhi, rlo)
-    else:
-        head, dist, keep, rhi, rlo, _ = contract_cuda.contract_plain(cn, h,
-                                                                     l, k)
-        tail_of = members_cuda.tails(cn, head)
+    head, dist, tail_of, keep, rhi, rlo, _ = contract_cuda.contract(cn, h, l,
+                                                                    k)
     return (head, dist, tail_of, keep, h, l, rhi, rlo,
             torch.from_numpy(real).to(device),
             torch.from_numpy(counts).to(device))
 
 
 def k10_compare(name, got, want) -> None:
-    """K10's or its plain version's outputs (tensors), as the host assembly
+    """K10's or its plain twin's outputs (tensors), as the host assembly
     reads them (``_members_to_host``), against ``k10_host``'s, bitwise."""
     from sh_assembly_tpu_torch.models import contiger
 
@@ -1462,15 +1467,15 @@ def k10_compare(name, got, want) -> None:
     if (got is None) != (want is None):
         raise AssertionError(f"K10 on {name}: members "
                              f"{'none' if got is None else 'some'}, the "
-                             f"host step {'none' if want is None else 'some'}")
+                             f"twin {'none' if want is None else 'some'}")
     if got is None:
         return
     for f, a, b in zip(want._fields, got, want):
         if a.dtype != b.dtype or a.shape != b.shape or \
                 not np.array_equal(a, b):
             bad = int((a != b).sum()) if a.shape == b.shape else "all"
-            raise AssertionError(f"K10 on {name}: {f} differs from the host "
-                                 f"step in {bad} entries")
+            raise AssertionError(f"K10 on {name}: {f} differs from the "
+                                 f"plain twin in {bad} entries")
 
 
 def _merged_spectrum(store, n, key_bits):
@@ -2172,14 +2177,13 @@ def phase7_genome():
           f"{time.time() - t0:.1f} s")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    # count calls of the host's contractions (the native walk and the torch
-    # one), which the card's forest must never take; of the collect
-    # staging, the probe programs and the one-shot node join; and of the
-    # plain versions of K6, K7 and K8, which the card must never run on
-    # this path; time every call into K7's library; keep the closure's and
-    # the contraction's inputs for the checks below.  One join first loads
-    # K7's kernels (CUDA loads a module at its first launch), so that the
-    # timed calls are device work
+    # count calls of the collect staging, the probe programs and the
+    # one-shot node join, and of the plain versions of K6, K7 and K8, which
+    # the card must never run on this path (K9's and K10's route shows in
+    # their launches); time every call into K7's library; keep the
+    # closure's and the contraction's inputs for the checks below.  One
+    # join first loads K7's kernels (CUDA loads a module at its first
+    # launch), so that the timed calls are device work
     t = torch.zeros(1, dtype=torch.int64, device="cuda")
     node_join_cuda.node_join(t, t, t, t)
     _reset_launches()
@@ -2198,15 +2202,12 @@ def phase7_genome():
     contiger.close_over_phantoms = keep_closure
     contiger.finalize_unitigs = keep_finalize
     try:
-        with _spies((contiger, "contract_paths"),
-                    (contiger, "contract_paths_host"),
-                    (contiger, "_stage_super"),
+        with _spies((contiger, "_stage_super"),
                     (stage_cuda, "stage_windows_plain"),
                     (contiger, "phantom_candidates"),
                     (contiger, "build_oriented_graph"), (kp, "join2"),
                     (kp, "join2_plain"),
-                    (probe_cuda, "node_probes_plain"),
-                    (contiger, "_members_host")) as calls, \
+                    (probe_cuda, "node_probes_plain")) as calls, \
                 prof_nj.timed_calls() as k7_calls:
             _, logtxt, wall = _run_cli(GENOME_FLAGS + [
                 "-i", os.path.join(d, "ReadFiles.txt"),
@@ -2216,21 +2217,18 @@ def phase7_genome():
     finally:
         contiger.close_over_phantoms = real_closure
         contiger.finalize_unitigs = real_finalize
-    fallback, host_walks, supers, plain, closure, graph, joins, joins_plain, \
-        probes_plain, host_members = calls
+    supers, plain, closure, graph, joins, joins_plain, probes_plain = calls
     launches = _launches()
     kinds = dict(node_join_cuda.KINDS)
     peak = torch.cuda.max_memory_allocated()
-    if fallback or host_walks or launches["contract"] != 3:
-        raise AssertionError(f"the contraction did not run through K9 alone "
-                             f"(a ranking, the reverse complements and the "
+    if launches["contract"] != 3:
+        raise AssertionError(f"the contraction did not run through K9 (a "
+                             f"ranking, the reverse complements and the "
                              f"keep rule): {launches['contract']} calls into "
-                             f"its library, {host_walks} native and "
-                             f"{fallback} torch walks")
-    if host_members or launches["members"] != 1:
-        raise AssertionError(f"the members step did not run through K10 "
-                             f"alone (one placement): {launches['members']} "
-                             f"placements, {host_members} numpy steps")
+                             f"its library")
+    if launches["members"] != 1:
+        raise AssertionError(f"the members step did not run through K10 (one "
+                             f"placement): {launches['members']} placements")
     print("  phase breakdown:")
     for name, s in sorted(profiling.GLOBAL.stats.items(),
                           key=lambda kv: -kv[1].seconds):
@@ -2297,23 +2295,25 @@ def phase7_genome():
 
 
 def k9_route_check(call, unitigs_fa: str) -> None:
-    """``finalize_unitigs`` again on the pipeline's own inputs, its forest
-    as numpy: the host route's ``unitigs.fa`` must be the CUDA run's,
-    byte for byte."""
+    """``finalize_unitigs`` again on the pipeline's own inputs, moved to the
+    CPU: the plain twins' ``unitigs.fa`` must be the CUDA run's (K9's and
+    K10's), byte for byte."""
     from sh_assembly_tpu_torch.models import contiger
 
     (hi, lo, real, counts, chain_next, params), kw = call
     t0 = time.time()
-    arrays = contiger.finalize_unitigs(hi, lo, real, counts,
-                                       chain_next.cpu().numpy(), params, **kw)
-    path = unitigs_fa + ".host"
+    arrays = contiger.finalize_unitigs(hi.cpu(), lo.cpu(), real, counts.cpu(),
+                                       chain_next.cpu(), params, **kw)
+    path = unitigs_fa + ".cpu"
     arrays.write_fasta(path)
     same = open(path, "rb").read() == open(unitigs_fa, "rb").read()
     os.remove(path)
     if not same:
-        raise AssertionError("the host route's unitigs.fa differs from K9's")
-    print(f"  the host route on the same forest ({time.time() - t0:.1f} s): "
-          f"unitigs.fa byte-identical to K9's", flush=True)
+        raise AssertionError("the plain twins' unitigs.fa differs from K9's "
+                             "and K10's")
+    print(f"  the plain twins on the same forest, on the CPU "
+          f"({time.time() - t0:.1f} s): unitigs.fa byte-identical to K9's and "
+          f"K10's", flush=True)
 
 
 def k7_closure_check(args) -> None:
@@ -2747,13 +2747,13 @@ def phase10_mesh():
     for line in logtxt.splitlines():
         if "[Contiger/sharded]" in line and "shards" in line:
             print("  " + line.split("] ", 1)[-1])
-    # the mesh's tail (finish_parts) contracts its numpy forest on the host
-    # and takes the numpy members step
-    host = ("contract", "members")
-    if not all(v for n, v in launches.items() if n not in host) or \
-            any(launches[n] for n in host):
+    # the mesh's tail (finish_parts) contracts its forest on the card like
+    # the single store: one ranking, one reverse complement, one keep rule
+    # and one placement
+    if not all(launches.values()) or launches["contract"] != 3 or \
+            launches["members"] != 1:
         raise AssertionError(f"a kernel never launched on the mesh path, or "
-                             f"K9 or K10 did: {launches}")
+                             f"K9 or K10 not once: {launches}")
     k = GENOME_FLAGS[1]
     buf = io.StringIO()
     t0 = time.time()
@@ -3605,50 +3605,55 @@ K9_SHAPE = dict(seed=96, nodes=1 << 23, k=47, lens=(1, 200),
 
 
 def phase17_k9(device):
-    """K9 against the host route and its plain twin, bitwise, on its cases
-    and at the cell's extent, timed there beside the host route.  Returns
-    its timing."""
+    """K9 against its plain twins, bitwise, on its cases and at the cell's
+    extent, timed there beside them.  Returns its timing."""
     import torch
 
     from sh_assembly_tpu_torch.ops import bits, contract_cuda
+    from sh_assembly_tpu_torch.ops import kmerpack as kp
 
-    print("== phase 17: K9 (contraction) against the host route and its "
-          "plain twin", flush=True)
+    print("== phase 17: K9 (contraction) against its plain twins", flush=True)
 
     def tensors(cn, hi, lo):
         return (torch.from_numpy(cn).to(device), bits.from_u64_np(hi, device),
                 bits.from_u64_np(lo, device))
+
+    def twins(cn, hi, lo, k):  # by name, on the card
+        head, dist, tail_of, n_bad = contract_cuda.rank_plain(cn)
+        rhi, rlo = kp.revcomp_packed(hi, lo, k)
+        keep = contract_cuda.keep_plain(head, tail_of, hi, lo, rhi, rlo)
+        return head, dist, tail_of, keep, rhi, rlo, n_bad
 
     before = contract_cuda.LAUNCHES
     names = []
     for name, cn, hi, lo, k in k9_cases(large=True):
         want = k9_host(cn, hi, lo, k)
         args = tensors(cn, hi, lo)
-        k9_compare(name, contract_cuda.contract_cuda(*args, k), want)
-        k9_compare(name, contract_cuda.contract_plain(*args, k), want)
+        k9_compare(name, contract_cuda.contract(*args, k), want)
+        k9_compare(name, twins(*args, k), want)
         names.append(name)
     if contract_cuda.LAUNCHES - before != 3 * len(names):
         raise AssertionError(f"{contract_cuda.LAUNCHES - before} calls into "
                              f"K9's library for {len(names)} forests")
-    print(f"  K9: {len(names)} forests identical to the host route and the "
-          f"plain twin ({', '.join(names)})")
+    print(f"  K9: {len(names)} forests identical to the plain twins on the "
+          f"CPU and on the card ({', '.join(names)})")
 
     s = K9_SHAPE
     k = s["k"]
     cn, hi, lo = k9_forest(s["seed"], s["nodes"], k, lens=s["lens"],
                            long_paths=s["long_paths"], cycles=s["cycles"],
                            pad=s["pad"], mirror=True)
-    t0 = time.perf_counter()
-    want = k9_host(cn, hi, lo, k)
-    host_ms = (time.perf_counter() - t0) * 1e3
     args = tensors(cn, hi, lo)
     M, Np = len(cn), len(hi)
-    k9_compare("the cell's extent", contract_cuda.contract_cuda(*args, k),
-               want)
-    ms, wms, pms = _probe_time(
-        lambda: contract_cuda.contract_cuda(*args, k),
-        lambda: contract_cuda.contract_plain(*args, k),
-        _same(f"K9 at {M} oriented nodes"))
+    heads = []
+
+    def compare(got, plain):
+        want = k9_numpy(plain)
+        heads.append(int((want[0] == np.arange(M)).sum()))
+        k9_compare("the cell's extent", got, want)
+
+    ms, wms, pms = _probe_time(lambda: contract_cuda.contract(*args, k),
+                               lambda: twins(*args, k), compare)
     head, _, tail_of, _ = contract_cuda.rank_cuda(args[0])
     rhi, rlo = contract_cuda.revcomp_cuda(args[1], args[2], k)
     parts = dict(
@@ -3661,38 +3666,36 @@ def phase17_k9(device):
     # once and their reverse complements written once
     moved = M * (4 + 4 + 4 + 1) + Np * (16 + 16)
     t9 = dict(ms=ms, wrapper_ms=wms, plain_ms=pms, library_ms=None,
-              host_ms=host_ms, **parts, moved=moved, oriented_nodes=M,
-              heads=int((want[0] == np.arange(M)).sum()), **bound(moved, 0))
+              **parts, moved=moved, oriented_nodes=M,
+              heads=heads[0], **bound(moved, 0))
     del args, head, tail_of, rhi, rlo
     torch.cuda.empty_cache()
     print(f"  K9 at the cell's extent ({M} oriented nodes, {t9['heads']} "
           f"heads): identical; device {ms:.4f} ms (ranking "
           f"{parts['rank_ms']:.4f}, reverse complements "
           f"{parts['revcomp_ms']:.4f}, keep rule {parts['keep_ms']:.4f}; a "
-          f"wrapper call {wms:.4f} ms), plain {pms:.3f} ms, the host route "
-          f"{host_ms:.1f} ms, bound {t9['bound_ms']:.4f} ms "
-          f"({t9['bound_by']}, {moved / 1e9:.3f} GB)", flush=True)
+          f"wrapper call {wms:.4f} ms), plain {pms:.3f} ms, bound "
+          f"{t9['bound_ms']:.4f} ms ({t9['bound_by']}, {moved / 1e9:.3f} GB)",
+          flush=True)
     return t9
 
 
 def phase18_k10(device, main_launches: int):
-    """K10 against its plain version and the host route's numpy step,
-    bitwise, on its cases and at phase 17's extent, timed there beside
-    them; a forest with a padding row on a kept path must raise.  Returns
-    its timing, with ``main_launches``, its launches on phase 7's main
-    path."""
+    """K10 against its plain twin, bitwise, on its cases and at phase 17's
+    extent, timed there beside it; a forest with a padding row on a kept
+    path must raise.  Returns its timing, with ``main_launches``, its
+    launches on phase 7's main path."""
     import torch
 
     from sh_assembly_tpu_torch.ops import members_cuda
 
-    print("== phase 18: K10 (members) against its plain version and the "
-          "host route's numpy step", flush=True)
+    print("== phase 18: K10 (members) against its plain twin", flush=True)
     before = members_cuda.LAUNCHES
     names = []
     for name, *case in k10_cases():
         want = k10_host(*case)
         args = k10_inputs(*case, device)
-        k10_compare(name, members_cuda.members_cuda(*args, case[-1]), want)
+        k10_compare(name, members_cuda.members(*args, case[-1]), want)
         k10_compare(name, members_cuda.members_plain(*args, case[-1]), want)
         names.append(name)
     if members_cuda.LAUNCHES - before != len(names):
@@ -3710,26 +3713,20 @@ def phase18_k10(device, main_launches: int):
         print(f"  a padding row on a kept path: refused ({e})")
     else:
         raise AssertionError("K10 placed a path holding a padding row")
-    print(f"  K10: {len(names)} cases identical to the host route's step and "
-          f"the plain version ({', '.join(names)})")
+    print(f"  K10: {len(names)} cases identical to the plain twin on the CPU "
+          f"and on the card ({', '.join(names)})")
 
     name, *case = next(c for c in k10_cases(large=True)
                        if c[0] == "cell_extent")
     cn, hi, lo, real, counts, k = case
     from sh_assembly_tpu_torch.models import contiger
 
-    head_h, dist_h, keep_h, rhi_h, rlo_h = k9_host(cn, hi, lo, k)
-    t0 = time.perf_counter()
-    want = contiger._members_host(hi, lo, rhi_h, rlo_h, real, counts, head_h,
-                                  dist_h, keep_h, k)
-    host_ms = (time.perf_counter() - t0) * 1e3
     args = k10_inputs(*case, device)
     M, Np = len(cn), len(hi)
+    want = contiger._members_to_host(members_cuda.members_plain(*args, k))
     k10_compare("the cell's extent", members_cuda.members_cuda(*args, k),
                 want)
     plain_ms = _time_ms(lambda: members_cuda.members_plain(*args, k), 3)
-    k10_compare("the cell's extent (plain)",
-                members_cuda.members_plain(*args, k), want)
     head, dist, tail_of, keep, *_, real_t, _ = args
     tot, _, _ = members_cuda.count_cuda(keep, real_t, dist, tail_of)
     n_mem, n_paths = tot.tolist()
@@ -3745,18 +3742,16 @@ def phase18_k10(device, main_launches: int):
     # written (45 B); each path's start and head written
     moved = 17 * M + Np + 45 * n_mem + 8 * n_paths
     t10 = dict(ms=ms, wrapper_ms=wms, plain_ms=plain_ms, library_ms=None,
-               host_ms=host_ms, moved=moved, oriented_nodes=M,
-               members=n_mem, paths=n_paths, main_launches=main_launches,
-               **bound(moved, 0))
+               moved=moved, oriented_nodes=M, members=n_mem, paths=n_paths,
+               main_launches=main_launches, **bound(moved, 0))
     del args, head, dist, tail_of, keep, real_t
     torch.cuda.empty_cache()
     print(f"  K10 at the cell's extent ({M} oriented nodes, {n_mem} members "
           f"of {n_paths} kept paths): identical; device {ms:.4f} ms (a "
           f"wrapper call {wms:.4f} ms, its two reads included), plain "
-          f"{plain_ms:.3f} ms, the host route's numpy step {host_ms:.1f} ms, "
-          f"bound {t10['bound_ms']:.4f} ms ({t10['bound_by']}, "
-          f"{moved / 1e9:.3f} GB); {main_launches} placement(s) on phase 7's "
-          f"main path", flush=True)
+          f"{plain_ms:.3f} ms, bound {t10['bound_ms']:.4f} ms "
+          f"({t10['bound_by']}, {moved / 1e9:.3f} GB); {main_launches} "
+          f"placement(s) on phase 7's main path", flush=True)
     return t10
 
 

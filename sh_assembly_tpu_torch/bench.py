@@ -76,8 +76,8 @@ from .cli import pipeline as pipe
 from .cli.cqf_denoise import resolve_device
 from .io import fastq
 from .models import contiger, counter
-from .ops import _build, kmerpack as kp, merge_cuda, node_join_cuda, \
-    nthash, packio, probe_cuda, spectrum as sp
+from .ops import _build, contract_cuda, kmerpack as kp, merge_cuda, \
+    node_join_cuda, nthash, packio, probe_cuda, spectrum as sp
 from .profile import mesh
 from .utils.profiling import median_ms
 
@@ -479,7 +479,8 @@ def stage2(device, genome: np.ndarray, rows: int,
                                                          2)
         _sync(device)
         t_probe = time.time() - t0
-        contiger.contract_paths_host(chain_next)
+        contract_cuda.contract(chain_next, hp, lp, K)  # where it lies
+        _sync(device)
         return n, t_collect, t_probe, time.time() - t0
 
     run_stage2()  # the first launches
@@ -490,7 +491,7 @@ def stage2(device, genome: np.ndarray, rows: int,
     log(f"# stage2(qb={log2_capacity}, {n_nodes/1e6:.3f}M nodes): collect "
         f"{windows/t_collect/1e6:.1f}M windows/s ({t_collect:.3f}s), "
         f"probe+contract {n_nodes/t_graph/1e6:.2f}M nodes/s ({t_graph:.3f}s: "
-        f"probes {t_probe:.3f}s, host contraction {t_graph - t_probe:.3f}s; "
+        f"probes {t_probe:.3f}s, contraction {t_graph - t_probe:.3f}s; "
         f"K8 node_probes {k8}, K7 node_join {k7} launches)"
         f"  [includes host feed]")
 

@@ -3,11 +3,10 @@
 // node k-mer, and the mirror keep rule.
 //
 // Replaces, where the forest lies on the card, the host steps that the JAX
-// package runs after its probe programs: the walk contract_paths_host
-// (cpp/contract.cpp; its device form is sh_assembly_tpu/models/contiger.py:
-// contract_paths), revcomp_packed (sh_assembly_tpu/ops/kmerpack.py, numpy
-// in kmerpack_np) and _path_summary_np (sh_assembly_tpu/models/contiger.py).
-// The results are theirs, bit for bit:
+// package runs after its probe programs (sh_assembly_tpu/models/contiger.py:
+// the native walk of cpp/contract.cpp, its device form contract_paths, the
+// numpy revcomp_packed of kmerpack_np and the numpy mirror keep rule of
+// finalize_unitigs).  The results are theirs, bit for bit:
 //   head[a]  the first node of a's path; on a cycle its least index
 //   dist[a]  the steps from head[a] to a
 //   keep[a]  a is a head, and its oriented k-mer is <= (unsigned,

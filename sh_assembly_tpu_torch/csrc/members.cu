@@ -3,9 +3,8 @@
 // reads of it.
 //
 // Replaces, where the contraction's forest lies on the card, the members
-// step of the host assembly (the numpy _members_host of
-// sh_assembly_tpu_torch/models/contiger.py; in the JAX package the first
-// lines of _finalize_host, sh_assembly_tpu/models/contiger.py): a mask of
+// step of the host assembly (in the JAX package the first lines of
+// _finalize_host, sh_assembly_tpu/models/contiger.py): a mask of
 // the oriented nodes down to the members of kept paths (keep[head[a]] and
 // real[a >> 1]), np.lexsort by (head, dist), and gathers of the oriented
 // words, the last bases and the counts in that order.  The results are

@@ -21,13 +21,13 @@ and the same output (``unitigs.fa`` byte-identical):
      table, whose store the graph's is, for the successor indices, one K2
      count join for the 9N counts) give out-degrees and contractible
      chain edges.
-  D. contraction where the chain forest lies: on the card, kernel K9
+  D. contraction where the chain forest lies: kernel K9
      (``ops/contract_cuda``: the ranking, the reverse complements and the
      mirror keep rule) and kernel K10 (``ops/members_cuda``: the kept
-     paths' members in order), on the host ``cpp/contract.cpp`` and numpy;
-     then the vectorised host assembly: sequences, medians, links, the
-     solid-seed component filter, FASTA.  Copied from the JAX package;
-     every device array reaches it as numpy uint64 through
+     paths' members in order), each on CUDA tensors, their plain twins on
+     any other; then the vectorised host assembly: sequences, medians,
+     links, the solid-seed component filter, FASTA.  Copied from the JAX
+     package; every device array reaches it as numpy uint64 through
      ``bits.to_u64_np``, because the assembly compares k-mer words
      unsigned.
 
@@ -500,106 +500,6 @@ def build_oriented_graph(spec: sp.Spectrum, hi, lo, k: int, key_bits: int,
 
 
 # --------------------------------------------------------------------------
-# Stage D: contraction
-# --------------------------------------------------------------------------
-
-def contract_paths_host(chain_next):
-    """Chain contraction on the host -> (head, dist, is_tail) numpy.
-
-    A native sequential walk over the pure paths/cycles of the chain forest
-    (cpp/contract.cpp); falls back to the pointer-jumping contract_paths
-    when the native library is unavailable.  Semantics identical.
-
-    The route of a forest that lies on the host: ``finalize_unitigs`` takes
-    it for numpy and CPU inputs (``--device cpu``, the mesh Contiger's
-    ``finish_parts``), and ``bench.py`` and ``profile/stage2.py`` time it
-    by name.  A forest on a CUDA device is contracted where it lies, by
-    kernel K9 (``ops/contract_cuda``), with the same results.
-    """
-    import ctypes
-
-    from ..io import native
-
-    if isinstance(chain_next, torch.Tensor):
-        chain_next = chain_next.cpu().numpy()
-    cn = np.ascontiguousarray(np.asarray(chain_next), np.int32)
-    M = len(cn)
-    lib = native._load()
-    if lib is not None and hasattr(lib, "shc_contract"):
-        if not getattr(lib, "_shc_typed", False):
-            lib.shc_contract.restype = ctypes.c_int
-            lib.shc_contract.argtypes = [
-                ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
-                ctypes.POINTER(ctypes.c_int32),
-                ctypes.POINTER(ctypes.c_int32),
-                ctypes.POINTER(ctypes.c_uint8)]
-            lib._shc_typed = True
-        head = np.empty(M, np.int32)
-        dist = np.empty(M, np.int32)
-        is_tail = np.empty(M, np.uint8)
-        rc = lib.shc_contract(
-            cn.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), M,
-            head.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-            dist.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-            is_tail.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
-        if rc == 0:
-            return (head.astype(np.int32), dist.astype(np.int32),
-                    is_tail.astype(bool))
-    h, d, t = contract_paths(torch.from_numpy(cn))
-    return h.numpy(), d.numpy(), t.numpy()
-
-
-def contract_paths(chain_next: torch.Tensor):
-    """Pointer-jumping contraction over the oriented chain forest.
-
-    Returns (head[2N], dist[2N] int32, is_tail[2N] bool) tensors.  Cycles
-    are cut at their minimum oriented index before the final doubling.
-    The fallback and cross-check of contract_paths_host.
-    """
-    M = chain_next.shape[0]
-    dev = chain_next.device
-    cn = chain_next.long()
-    idx = torch.arange(M, device=dev)
-    rounds = int(np.ceil(np.log2(max(M, 2)))) + 1
-
-    # prev[b] = a for each chain edge a->b; chain targets are unique (the
-    # indeg-1 condition), so the scatter has no conflicts
-    src_ok = cn >= 0
-    prev = torch.full((M,), -1, dtype=torch.int64, device=dev)
-    prev.index_put_((cn[src_ok],), idx[src_ok])
-
-    has_prev = prev >= 0
-    par0 = torch.where(has_prev, prev, idx)
-
-    # phase 1: cycle detection (reached a head within M steps?)
-    par = par0
-    reached = ~has_prev
-    for _ in range(rounds):
-        reached = reached | reached[par]
-        par = par[par]
-    in_cycle = ~reached
-
-    # phase 2: min oriented index per cycle
-    par = par0
-    lab = idx
-    for _ in range(rounds):
-        lab = torch.minimum(lab, lab[par])
-        par = par[par]
-    cut = in_cycle & (lab == idx)
-    has_prev = has_prev & ~cut
-
-    # phase 3: head + offset doubling
-    par = torch.where(has_prev, prev, idx)
-    off = has_prev.long()
-    for _ in range(rounds):
-        off = off + off[par]
-        par = par[par]
-    head = par
-    is_tail = (cn < 0) | (in_cycle & (cn == head))
-    return head.int(), off.int(), is_tail
-
-
-# --------------------------------------------------------------------------
 # Host assembly: vectorized sequences, medians, links, FASTA
 # --------------------------------------------------------------------------
 
@@ -844,7 +744,7 @@ def finalize_unitigs(
     lo: torch.Tensor,
     real: np.ndarray,
     node_counts: torch.Tensor,
-    chain_next: torch.Tensor | np.ndarray,
+    chain_next: torch.Tensor,
     params: cfg.ContigerParams,
     is_seed: np.ndarray | None = None,
 ) -> ArrayUnitigs:
@@ -852,73 +752,43 @@ def finalize_unitigs(
 
     hi/lo: padded node k-mers [Np] (sentinel holes allowed anywhere);
     real: bool[Np] live-node mask; chain_next: int32[2*Np] oriented
-    successor indices (-1 = none).  is_seed: bool[Np], True where the node
-    k-mer is some read's middle k-mer; None = seed metadata unavailable,
-    fall back to the component-contains-solid rule.  The device arrays
-    cross to the host here, k-mer words as uint64 (bits.to_u64_np): the
-    assembly orders them with numpy's unsigned comparisons.
+    successor indices (-1 = none), on the nodes' device.  is_seed:
+    bool[Np], True where the node k-mer is some read's middle k-mer; None
+    = seed metadata unavailable, fall back to the component-contains-solid
+    rule.
 
-    The contraction and the members step run where chain_next lies: a CUDA
-    tensor on the card (kernel K9, ``_contract_on_card``, then kernel K10,
-    ``_members_on_card``), numpy or a CPU tensor on the host
-    (``contract_paths_host``, numpy's reverse complements and keep rule,
-    then ``_members_host``).  Both hand the same arrays to the rest of the
-    host assembly (``_finalize_host``).
+    The contraction (K9, ``ops/contract_cuda``) and the members step (K10,
+    ``ops/members_cuda``) run where the forest lies: each dispatcher
+    launches its kernel on CUDA tensors and its plain twin on any other.
+    Nothing crosses but n_bad, read in ``.d2h`` (which so waits for the
+    ranking), and the member-ordered arrays, as uint64 k-mer words
+    (``bits.to_u64_np``): the rest of the host assembly orders them with
+    numpy's unsigned comparisons (``_finalize_host``).
     """
     k = params.k
-    on_card = isinstance(chain_next, torch.Tensor) and chain_next.is_cuda
+    contract_cuda.check(chain_next, hi, lo, k)
     with profiling.phase("contiger:contract"):
-        if on_card:
-            forest = _contract_on_card(hi, lo, chain_next, k)
-        else:
-            with profiling.phase("contiger:contract.d2h", sync=False):
-                if isinstance(chain_next, torch.Tensor):
-                    chain_next = chain_next.cpu().numpy()
-                hi_np = bits.to_u64_np(hi)
-                lo_np = bits.to_u64_np(lo)
-            with profiling.phase("contiger:contract.walk", sync=False):
-                head, dist, is_tail = contract_paths_host(chain_next)
-            with profiling.phase("contiger:contract.revcomp", sync=False):
-                rhi_np, rlo_np = kpn.revcomp_packed(hi_np, lo_np, k)
-            with profiling.phase("contiger:contract.keep rule", sync=False):
-                keep = _path_summary_np(head, is_tail, hi_np, lo_np,
-                                        rhi_np, rlo_np)
+        with profiling.phase("contiger:contract.walk", sync=False):
+            head, dist, tail_of, n_bad = contract_cuda.rank(chain_next)
+        with profiling.phase("contiger:contract.revcomp", sync=False):
+            rhi, rlo = contract_cuda.revcomp(hi, lo, k)
+        with profiling.phase("contiger:contract.keep rule", sync=False):
+            keep = contract_cuda.keep(head, tail_of, hi, lo, rhi, rlo)
+        with profiling.phase("contiger:contract.d2h", sync=False):
+            n_bad = int(n_bad.item())
+        if n_bad:
+            raise ValueError(f"chain_next: {n_bad} targets out of range or "
+                             f"shared by two nodes")
     with profiling.phase("contiger:host assembly"):
-        if on_card:
-            with profiling.phase("contiger:host assembly.members",
-                                 sync=False):
-                mem = _members_on_card(forest, hi, lo, real, node_counts, k)
-        else:
-            counts_np = node_counts.cpu().numpy()
-            with profiling.phase("contiger:host assembly.members",
-                                 sync=False):
-                mem = _members_host(hi_np, lo_np, rhi_np, rlo_np, real,
-                                    counts_np, head, dist, keep, k)
+        real_t = torch.from_numpy(np.ascontiguousarray(real, dtype=bool)).to(
+            hi.device)
+        with profiling.phase("contiger:host assembly.members", sync=False):
+            mem = _members_to_host(members_cuda.members(
+                head, dist, tail_of, keep, hi, lo, rhi, rlo, real_t,
+                node_counts, k))
         if mem is None:
             return ArrayUnitigs.empty(k)
         return _finalize_host(mem, params, is_seed)
-
-
-def _contract_on_card(hi, lo, chain_next, k: int):
-    """Kernel K9 on the forest where it lies.  Nothing crosses but n_bad,
-    read in ``.d2h`` (which so waits for K9): the ranking, the keep rule
-    and the reverse complements stay on the card for K10.  Nothing else
-    synchronises, so the step spans time the launches.  -> (head, dist,
-    tail_of, keep, rhi, rlo) tensors."""
-    contract_cuda.check(chain_next, hi, lo, k)
-    with profiling.phase("contiger:contract.walk", sync=False):
-        with profiling.phase("contiger:contract.walk.k9", sync=False):
-            head, dist, tail_of, n_bad = contract_cuda.rank_cuda(chain_next)
-    with profiling.phase("contiger:contract.revcomp", sync=False):
-        rhi, rlo = contract_cuda.revcomp_cuda(hi, lo, k)
-    with profiling.phase("contiger:contract.keep rule", sync=False):
-        keep = contract_cuda.keep_cuda(head, tail_of, hi, lo, rhi, rlo)
-    with profiling.phase("contiger:contract.d2h", sync=False):
-        n_bad = int(n_bad.item())
-    if n_bad:
-        raise ValueError(f"chain_next: {n_bad} targets out of range or "
-                         f"shared by two nodes")
-    return head, dist, tail_of, keep, rhi, rlo
 
 
 class _Members(NamedTuple):
@@ -937,60 +807,9 @@ class _Members(NamedTuple):
     head_idx: np.ndarray  # int64 [P] each path's head
 
 
-def _members_host(hi, lo, rhi, rlo, real, node_counts, head, dist, keep,
-                  k: int) -> _Members | None:
-    """The members step in numpy (the JAX package's): mask, lexsort by
-    (head, dist), gathers.  None where no kept path has a member."""
-    a = np.arange(2 * hi.shape[0], dtype=np.int64)
-    keep_np = np.asarray(keep)
-    head_np = np.asarray(head)
-    member = keep_np[head_np]
-    member &= real[a >> 1]  # drop sentinel padding nodes
-    heads = head_np[member].astype(np.int64)
-    dists = np.asarray(dist)[member]
-    ai = a[member]
-    node_i = ai >> 1
-    orient = ai & 1
-    if len(heads) == 0:
-        return None
-
-    order = np.lexsort((dists, heads))
-    heads, node_i, orient, ai = (
-        heads[order], node_i[order], orient[order], ai[order])
-
-    counts_np = np.asarray(node_counts).astype(np.int64)
-    hi_np, lo_np = np.asarray(hi), np.asarray(lo)
-    rhi_np, rlo_np = np.asarray(rhi), np.asarray(rlo)
-
-    # oriented packed kmers + per-member data
-    ohi = np.where(orient == 0, hi_np[node_i], rhi_np[node_i])
-    olo = np.where(orient == 0, lo_np[node_i], rlo_np[node_i])
-    lastb = kpn.last_base(ohi, olo, k)
-    counts_mem = counts_np[node_i]
-
-    starts = np.flatnonzero(
-        np.r_[True, heads[1:] != heads[:-1]]).astype(np.int64)
-    lens = np.diff(np.r_[starts, len(heads)])
-    tail_pos = starts + lens - 1
-    return _Members(ai, node_i, ohi, olo, lastb, counts_mem, starts, lens,
-                    tail_pos, heads[starts])
-
-
-def _members_on_card(forest, hi, lo, real, node_counts, k: int):
-    """Kernel K10 on K9's forest where it lies, then one copy of each
-    member-ordered array.  None where no kept path has a member."""
-    head, dist, tail_of, keep, rhi, rlo = forest
-    real_t = torch.from_numpy(np.ascontiguousarray(real, dtype=bool)).to(
-        hi.device)
-    with profiling.phase("contiger:host assembly.members.k10", sync=False):
-        placed = members_cuda.members_cuda(head, dist, tail_of, keep, hi, lo,
-                                           rhi, rlo, real_t, node_counts, k)
-    return _members_to_host(placed)
-
-
 def _members_to_host(placed) -> _Members | None:
-    """K10's (or its plain version's) member-ordered tensors -> the arrays
-    ``_members_host`` gives.  None where there is no member."""
+    """K10's (or its plain twin's) member-ordered tensors -> the arrays
+    the rest of the host assembly reads.  None where there is no member."""
     ai_t, ohi, olo, lastb, counts, starts, head_idx = placed
     if ai_t.numel() == 0:
         return None
@@ -1002,27 +821,6 @@ def _members_to_host(placed) -> _Members | None:
                     counts.cpu().numpy().astype(np.int64), starts, lens,
                     starts + lens - 1,
                     head_idx.cpu().numpy().astype(np.int64))
-
-
-def _path_summary_np(head, is_tail, hi, lo, rhi, rlo):
-    """Numpy mirror-dedup keep rule (see path_summary): keep the oriented
-    path whose head k-mer is lexicographically <= its mirror's head."""
-    M = len(head)
-    idx = np.arange(M, dtype=np.int64)
-    tail_of = np.zeros(M, np.int64)
-    m = np.asarray(is_tail, bool)
-    tail_of[head[m]] = idx[m]
-    is_head = head == idx
-
-    def obits(a):
-        i, o = a >> 1, a & 1
-        return (np.where(o == 0, hi[i], rhi[i]),
-                np.where(o == 0, lo[i], rlo[i]))
-
-    h_hi, h_lo = obits(idx)
-    mirror = tail_of ^ 1
-    m_hi, m_lo = obits(mirror)
-    return is_head & ((h_hi < m_hi) | ((h_hi == m_hi) & (h_lo <= m_lo)))
 
 
 def _finalize_host(mem: _Members, params, is_seed=None):

@@ -1,36 +1,34 @@
-"""Kernel K9: the contraction of the Contiger's chain forest on the card.
+"""Kernel K9: the contraction of the Contiger's chain forest, where it lies.
 
-Replaces, where the forest lies on a CUDA device, the three host steps of
-``models/contiger.finalize_unitigs``: the walk ``contract_paths_host``
-(``cpp/contract.cpp``), the numpy ``kmerpack_np.revcomp_packed`` and the
-mirror keep rule ``_path_summary_np`` (the JAX package's ``contract_paths``,
-``kmerpack.revcomp_packed`` and ``_path_summary_np``), with the
-hand-written CUDA kernels of ``csrc/contract.cu``: a sparse ruling set ranks
-the forest, one launch takes the reverse complements and one the keep rule
-(its header says what bounds it on the card and what the design does about
-it).  So only what the host assembly reads crosses to the host.
+The three steps of stage D in ``models/contiger.finalize_unitigs`` (the JAX
+package's ``contract_paths``, ``kmerpack.revcomp_packed`` and numpy mirror
+keep rule), each behind one dispatcher.  A CUDA tensor launches the
+hand-written kernels of ``csrc/contract.cu``: a sparse ruling set ranks the
+forest, one launch takes the reverse complements and one the keep rule (its
+header says what bounds them on the card and what the design does about
+it).  Any other tensor takes the plain twin, a pure-torch mirror with the
+same contract, which also runs on CUDA tensors when called by name (how
+the kernels are checked).
 
-Contract of ``contract(chain_next, hi, lo, k)``:
-  chain_next: contiguous 1-D int32 tensor of M = 2 Np oriented successor
-        indices, -1 = none; targets unique (the indeg-1 rule), so the
-        forest is pure paths and pure cycles;
-  hi, lo: contiguous 1-D int64 tensors of the Np node k-mers, left-aligned
-        (``kmerpack``), sentinel rows allowed, on the same device; 1 <= k
-        <= 63.
-  Returns (head int32[M], dist int32[M], keep bool[M], rhi int64[Np],
-  rlo int64[Np], n_bad int32[1]), bit for bit what ``contract_paths_host``
-  (head, dist), ``revcomp_packed`` and ``_path_summary_np`` give: cycles
-  cut at their least oriented index, k-mer words ordered unsigned.
-  n_bad counts chain targets out of range or shared by two nodes, which
-  the forest never has; the other outputs mean nothing where it is not 0.
+  rank(chain_next) -> (head, dist, tail_of int32[M], n_bad int32[1]):
+        chain_next is a contiguous 1-D int32 tensor of M = 2 Np oriented
+        successor indices, -1 = none, targets unique (the indeg-1 rule),
+        so the forest is pure paths and pure cycles; cycles are cut at
+        their least oriented index.  tail_of holds, at each head, the last
+        node of its path (elsewhere the kernel's scratch, the twin's -1).
+        n_bad counts chain targets out of range or shared by two nodes,
+        which the forest never has; where it is not 0 the other outputs
+        mean nothing (the twin then does not walk).  Nothing raises for
+        it: the caller reads n_bad.
+  revcomp(hi, lo, k) -> (rhi, rlo) int64[Np]: the reverse complements of
+        the left-aligned node words (``kmerpack``), sentinel rows allowed;
+        1 <= k <= 63.
+  keep(head, tail_of, hi, lo, rhi, rlo) -> keep bool[M]: the heads whose
+        k-mer is <= (unsigned) their mirror path's head k-mer.
+  contract(chain_next, hi, lo, k) -> (head, dist, tail_of, keep, rhi, rlo,
+        n_bad): ``check``, then the three in turn.
 
-CUDA tensors launch the kernels (``rank_cuda``, ``revcomp_cuda``,
-``keep_cuda``, in that order), nothing synchronises, and a refused launch
-raises; the caller reads n_bad with its copies.  CPU tensors take
-``contract_plain``: ``contiger.contract_paths`` (pointer jumping),
-``kmerpack.revcomp_packed`` and ``keep_rule_plain``, a torch mirror of
-``_path_summary_np``, which raises where n_bad is not 0; it also runs on
-CUDA tensors when called by name, which is how the kernels are checked.
+On CUDA tensors nothing synchronises and a refused launch raises.
 """
 
 from __future__ import annotations
@@ -189,21 +187,6 @@ def keep_cuda(head, tail_of, hi, lo, rhi, rlo) -> torch.Tensor:
     return keep
 
 
-def contract_cuda(chain_next, hi, lo, k: int):
-    """Launch K9 on chain_next's GPU and current stream (module docstring)."""
-    check(chain_next, hi, lo, k)
-    head, dist, tail_of, n_bad = rank_cuda(chain_next)
-    rhi, rlo = revcomp_cuda(hi, lo, k)
-    keep = keep_cuda(head, tail_of, hi, lo, rhi, rlo)
-    return head, dist, keep, rhi, rlo, n_bad
-
-
-def contract(chain_next, hi, lo, k: int):
-    """K9 for CUDA tensors, its plain version for CPU tensors."""
-    fn = contract_cuda if chain_next.is_cuda else contract_plain
-    return fn(chain_next, hi, lo, k)
-
-
 def count_bad(chain_next: torch.Tensor) -> int:
     """Chain targets out of range or shared by two nodes (K9's n_bad)."""
     M = chain_next.numel()
@@ -213,36 +196,99 @@ def count_bad(chain_next: torch.Tensor) -> int:
     return int(out.sum()) + int(shared.sum())
 
 
-def keep_rule_plain(head, is_tail, hi, lo, rhi, rlo) -> torch.Tensor:
-    """Torch mirror of ``_path_summary_np``: keep the oriented path whose
-    head k-mer is <= (unsigned) its mirror path's head k-mer."""
-    M = head.numel()
-    idx = torch.arange(M, device=head.device)
-    tail_of = torch.zeros(M, dtype=torch.int64, device=head.device)
-    tail_of[head[is_tail].long()] = idx[is_tail]
+def rank_plain(chain_next: torch.Tensor):
+    """Pure-torch twin of ``rank_cuda``: pointer jumping over the forest,
+    on chain_next's device (module docstring)."""
+    M, dev = chain_next.numel(), chain_next.device
+    idx = torch.arange(M, device=dev)
+    n_bad = count_bad(chain_next)
+    if n_bad:
+        return (idx.int(), torch.zeros_like(chain_next), idx.int(),
+                torch.full((1,), n_bad, dtype=torch.int32, device=dev))
+    cn = chain_next.long()
+    rounds = max(M - 1, 1).bit_length() + 1
+
+    # prev[b] = a for each chain edge a->b; chain targets are unique (the
+    # indeg-1 condition), so the scatter has no conflicts
+    src_ok = cn >= 0
+    prev = torch.full((M,), -1, dtype=torch.int64, device=dev)
+    prev.index_put_((cn[src_ok],), idx[src_ok])
+
+    has_prev = prev >= 0
+    par0 = torch.where(has_prev, prev, idx)
+
+    # phase 1: cycle detection (reached a head within M steps?)
+    par = par0
+    reached = ~has_prev
+    for _ in range(rounds):
+        reached = reached | reached[par]
+        par = par[par]
+    in_cycle = ~reached
+
+    # phase 2: min oriented index per cycle
+    par = par0
+    lab = idx
+    for _ in range(rounds):
+        lab = torch.minimum(lab, lab[par])
+        par = par[par]
+    cut = in_cycle & (lab == idx)
+    has_prev = has_prev & ~cut
+
+    # phase 3: head + offset doubling
+    par = torch.where(has_prev, prev, idx)
+    off = has_prev.long()
+    for _ in range(rounds):
+        off = off + off[par]
+        par = par[par]
+    head = par
+    is_tail = (cn < 0) | (in_cycle & (cn == head))
+    tail_of = torch.full((M,), -1, dtype=torch.int32, device=dev)
+    tail_of[head[is_tail]] = idx[is_tail].int()
+    return (head.int(), off.int(), tail_of,
+            torch.zeros(1, dtype=torch.int32, device=dev))
+
+
+def keep_plain(head, tail_of, hi, lo, rhi, rlo) -> torch.Tensor:
+    """Pure-torch twin of ``keep_cuda`` (the JAX package's numpy mirror
+    keep rule): keep the oriented path whose head k-mer is <= (unsigned)
+    its mirror path's head k-mer."""
+    idx = torch.arange(head.numel(), device=head.device)
     is_head = head.long() == idx
+    tail = torch.where(is_head, tail_of.long(), idx)
 
     def obits(a):
         i, o = a >> 1, (a & 1) == 1
         return (torch.where(o, rhi[i], hi[i]), torch.where(o, rlo[i], lo[i]))
 
     h_hi, h_lo = obits(idx)
-    m_hi, m_lo = obits(tail_of ^ 1)
+    m_hi, m_lo = obits(tail ^ 1)
     return is_head & (kp.ult(h_hi, m_hi) |
                       ((h_hi == m_hi) & ~kp.ult(m_lo, h_lo)))
 
 
-def contract_plain(chain_next, hi, lo, k: int):
-    """Pure-torch twin of K9 on any device: the pointer-jumping
-    contraction, the reverse complements and the keep rule."""
-    from ..models import contiger  # the models import the ops
+def rank(chain_next: torch.Tensor):
+    """K9's ranking on a CUDA tensor, its plain twin otherwise."""
+    fn = rank_cuda if chain_next.is_cuda else rank_plain
+    return fn(chain_next)
 
+
+def revcomp(hi: torch.Tensor, lo: torch.Tensor, k: int):
+    """K9's reverse complements on CUDA tensors, ``revcomp_packed``
+    otherwise."""
+    return revcomp_cuda(hi, lo, k) if hi.is_cuda else \
+        kp.revcomp_packed(hi, lo, k)
+
+
+def keep(head, tail_of, hi, lo, rhi, rlo) -> torch.Tensor:
+    """K9's keep rule on CUDA tensors, its plain twin otherwise."""
+    fn = keep_cuda if head.is_cuda else keep_plain
+    return fn(head, tail_of, hi, lo, rhi, rlo)
+
+
+def contract(chain_next, hi, lo, k: int):
+    """The whole contraction where the forest lies (module docstring)."""
     check(chain_next, hi, lo, k)
-    n_bad = count_bad(chain_next)
-    if n_bad:
-        raise ValueError(f"{n_bad} chain targets out of range or shared")
-    head, dist, is_tail = contiger.contract_paths(chain_next)
-    rhi, rlo = kp.revcomp_packed(hi, lo, k)
-    keep = keep_rule_plain(head, is_tail, hi, lo, rhi, rlo)
-    return (head, dist, keep, rhi, rlo,
-            torch.zeros(1, dtype=torch.int32, device=chain_next.device))
+    head, dist, tail_of, n_bad = rank(chain_next)
+    rhi, rlo = revcomp(hi, lo, k)
+    return (head, dist, tail_of, keep(head, tail_of, hi, lo, rhi, rlo), rhi,
+            rlo, n_bad)

@@ -1,16 +1,15 @@
-"""Kernel K10: the members of the kept paths, placed on the card.
+"""Kernel K10: the members of the kept paths, placed where the forest lies.
 
-Replaces, where the contraction's forest lies on a CUDA device, the members
-step of the host assembly (``models/contiger._members_host``, the first
-lines of the JAX package's ``_finalize_host``): numpy's mask of the oriented
-nodes down to the members of kept paths, its ``lexsort`` by (head, dist)
-and its gathers of the oriented words, last bases and counts.  K9
-(``ops/contract_cuda``) leaves head, dist and tail_of on the card, so the
-order needs no sort: a path's members follow the exclusive scan of its
-length over the heads, each at its head's offset plus its dist.  The
-hand-written CUDA kernels of ``csrc/members.cu`` count, scan and place (its
-header says what bounds them on the card and what the design does about
-it), and only the member-ordered arrays cross to the host.
+The members step of the host assembly in ``models/contiger.finalize_unitigs``
+(the first lines of the JAX package's ``_finalize_host``: numpy's mask of
+the oriented nodes down to the members of kept paths, its ``lexsort`` by
+(head, dist) and its gathers of the oriented words, last bases and counts).
+K9 (``ops/contract_cuda``) leaves head, dist and tail_of where the forest
+lies, so the order needs no sort: a path's members follow the exclusive
+scan of its length over the heads, each at its head's offset plus its
+dist.  The hand-written CUDA kernels of ``csrc/members.cu`` count, scan and
+place (its header says what bounds them on the card and what the design
+does about it), and only the member-ordered arrays cross to the host.
 
 Contract of ``members(head, dist, tail_of, keep, hi, lo, rhi, rlo, real,
 node_counts, k)``:
@@ -25,17 +24,18 @@ node_counts, k)``:
   kept paths of real nodes in (head, dist) order with their oriented
   words, last bases (``kmerpack_np.last_base``) and counts; each path's
   first member and head, paths in the index order of their heads.  Bit for
-  bit what ``_members_host`` gives.  A member whose path holds a padding
-  row, or whose head is one, raises ValueError (``build_oriented_graph``
-  gives padding rows no edge, so a forest of the Contiger never has one);
-  so does a forest K9 did not rank.
+  bit what the JAX package's members step gives.  A member whose path
+  holds a padding row, or whose head is one, raises ValueError
+  (``build_oriented_graph`` gives padding rows no edge, so a forest of the
+  Contiger never has one); so does a forest K9 did not rank.
 
-CUDA tensors take ``members_cuda``: the count and the carry scan, a read of
-the totals (the outputs' sizes; it synchronises), the offsets and the
-placement, and a read of the members placed against the total.  CPU
-tensors take ``members_plain``, a torch mirror that orders the members by a
-stable sort of (head << 32) | dist; it also runs on CUDA tensors when
-called by name, which is how the kernels are checked.
+``members`` dispatches: CUDA tensors take ``members_cuda`` (the count and
+the carry scan, a read of the totals, which size the outputs and so
+synchronise, the offsets and the placement, and a read of the members
+placed against the total); any other tensor takes the plain twin
+``members_plain``, a torch mirror that orders the members by a stable sort
+of (head << 32) | dist, which also runs on CUDA tensors when called by
+name (how the kernels are checked).
 """
 
 from __future__ import annotations
@@ -202,17 +202,6 @@ def members_cuda(head, dist, tail_of, keep, hi, lo, rhi, rlo, real,
     return outs
 
 
-def tails(chain_next, head) -> torch.Tensor:
-    """tail_of as K9's ranking leaves it at the heads, from the forest: a
-    path's last node has no next, a cycle's the head as its next (-1 at
-    every other node)."""
-    idx = torch.arange(head.numel(), dtype=torch.int32, device=head.device)
-    is_tail = (chain_next < 0) | (chain_next == head)
-    tail_of = torch.full_like(head, -1)
-    tail_of[head[is_tail].long()] = idx[is_tail]
-    return tail_of
-
-
 def members_plain(head, dist, tail_of, keep, hi, lo, rhi, rlo, real,
                   node_counts, k: int):
     """Pure-torch twin of K10 on any device: the same count and the same
@@ -251,7 +240,7 @@ def members_plain(head, dist, tail_of, keep, hi, lo, rhi, rlo, real,
 
 def members(head, dist, tail_of, keep, hi, lo, rhi, rlo, real, node_counts,
             k: int):
-    """K10 for CUDA tensors, its plain version for CPU tensors."""
+    """K10 on CUDA tensors, its plain twin otherwise."""
     fn = members_cuda if head.is_cuda else members_plain
     return fn(head, dist, tail_of, keep, hi, lo, rhi, rlo, real, node_counts,
               k)

@@ -22,7 +22,8 @@ all_to_all round trip:
                 CUDA tensors: the single-device flush's fold)
 
 Contraction and the host assembly are the single-device tail
-(``contiger.finalize_unitigs``) on the shards' stores concatenated: a
+(``contiger.finalize_unitigs``: kernels K9 and K10 on CUDA tensors) on the
+shards' stores concatenated, where they lie: a
 node's index is shard * node_cap_local + local, so the unitig numbering
 follows the JAX sharded run and not the single-device one.
 
@@ -525,8 +526,8 @@ def shard_parts(
 def finish_parts(parts: list[ShardPart], saw_seed_meta: bool,
                  params: cfg.ContigerParams) -> contiger.ArrayUnitigs:
     """The single-device tail on every shard's part, in global shard order:
-    the chain rule on global indices, then contraction and the host
-    assembly (``contiger.finalize_unitigs``)."""
+    the chain rule on global indices (numpy), then contraction and the
+    host assembly on the parts' device (``contiger.finalize_unitigs``)."""
     n, Cl = len(parts), parts[0].hi.shape[0]
     ec, sjg, sog = (torch.cat(x).cpu().numpy().astype(np.int64) for x in (
         [p.ecount for p in parts], [p.succ for p in parts],
@@ -552,9 +553,10 @@ def finish_parts(parts: list[ShardPart], saw_seed_meta: bool,
         f"{n} shards (peak shard fill {peak}/{Cl})")
     is_seed = (torch.cat([p.seed for p in parts]).cpu().numpy() != 0
                if saw_seed_meta else None)
+    hi = torch.cat([p.hi for p in parts])
     return contiger.finalize_unitigs(
-        torch.cat([p.hi for p in parts]), torch.cat([p.lo for p in parts]),
-        real, node_counts, chain_next, params, is_seed=is_seed)
+        hi, torch.cat([p.lo for p in parts]), real, node_counts,
+        torch.from_numpy(chain_next).to(hi.device), params, is_seed=is_seed)
 
 
 def assemble_unitigs_sharded(

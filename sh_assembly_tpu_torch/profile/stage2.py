@@ -10,8 +10,10 @@ so that successor probes hit and chains contract.  The spectrum holds
 every node's key twice (the abundance filter passes) and random keys up
 to half its slots.  Times ``contiger.build_oriented_graph`` (the 8 + 1
 probes a node: kernels K8 and K7 and the K2 count join on the card) and
-``contiger.contract_paths_host`` (the native walk), the second of two runs
-each, and logs their rates and the K7 and K8 launches of the timed run.
+the contraction where the forest lies (``contract_cuda.contract``: kernel
+K9's ranking, reverse complements and keep rule on the card, through to a
+synchronise), the second of two runs each, and logs their rates and the K7
+and K8 launches of the timed run.
 
 It does not carry the script's two faults (ROADMAP §3, fault 8): its
 default is N = 2^24, at which the script's constants were taken (it
@@ -33,7 +35,8 @@ import torch
 
 from ..cli.cqf_denoise import resolve_device
 from ..models import contiger
-from ..ops import bits, node_join_cuda, probe_cuda, spectrum as sp
+from ..ops import bits, contract_cuda, node_join_cuda, probe_cuda, \
+    spectrum as sp
 from ..utils.logging import log
 
 # The numbers of the last run() in this process, for callers of main().
@@ -105,7 +108,9 @@ def run(device, log2_n: int = 24, log2_capacity: int = 28,
         cn = chain_next.cpu().numpy()  # synchronises
         t_probe = time.time() - t0
         t0 = time.time()
-        contiger.contract_paths_host(cn)
+        contract_cuda.contract(chain_next, hi, lo, K)  # where it lies
+        if chain_next.is_cuda:
+            torch.cuda.synchronize(chain_next.device)
         return t_probe, time.time() - t0, cn, int(nsucc.long().sum())
 
     once()  # warm-up
@@ -122,7 +127,8 @@ def run(device, log2_n: int = 24, log2_capacity: int = 28,
     log(f"probe (build_oriented_graph): {t_probe:.3f} s = "
         f"{N / t_probe / 1e6:.2f} M nodes/s (K8 node_probes {k8} and K7 "
         f"node_join {k7} launches)")
-    log(f"contract (native host walk): {t_contract:.3f} s = "
+    log(f"contract (the ranking, reverse complements and keep rule where "
+        f"the forest lies): {t_contract:.3f} s = "
         f"{N / t_contract / 1e6:.2f} M nodes/s ({res['chain_edges']} chain "
         f"edges, {n_succ} successor edges)")
     log(f"total {time.time() - t_all:.0f} s")

@@ -1,8 +1,8 @@
 """The port's Contiger stages against the JAX package's, bitwise, on the
 CPU: node collection (K2's and K3's plain versions behind the flushes),
 the phantom closure (including a round whose output is truncated to the
-frontier extent), the oriented graph probes, and the pointer-jumping
-contraction against the host C++ walk."""
+frontier extent), the oriented graph probes, and the plain twin of K9's
+ranking against the JAX package's C++ walk and pointer jumping."""
 
 import numpy as np
 import pytest
@@ -17,7 +17,7 @@ from sh_assembly_tpu.models import counter as jcounter
 from sh_assembly_tpu.ops import spectrum as jsp
 from sh_assembly_tpu_torch.io import fastq
 from sh_assembly_tpu_torch.models import contiger
-from sh_assembly_tpu_torch.ops import bits, kmerpack_np
+from sh_assembly_tpu_torch.ops import bits, contract_cuda, kmerpack_np
 from sh_assembly_tpu_torch.ops import spectrum as sp
 
 DEV = "cpu"  # the port's functions default to the GPU
@@ -172,8 +172,9 @@ def test_collect_nodes_overflow_raises_like_jax():
 
 
 def test_contract_paths_matches_host_walk():
-    """The pointer-jumping contraction against the native C++ walk
-    (cpp/contract.cpp) on disjoint chains and cycles."""
+    """The plain twin of K9's ranking (``contract_cuda.rank_plain``, pointer
+    jumping) against the JAX package's native C++ walk (cpp/contract.cpp)
+    and its jit pointer jumping, on disjoint chains and cycles."""
     rng = np.random.default_rng(7)
     M = 4096
     nxt = np.full(M, -1, np.int32)
@@ -188,11 +189,14 @@ def test_contract_paths_matches_host_walk():
     for c0 in range(0, len(tail) - 6, 6):
         cyc = tail[c0:c0 + 6]
         nxt[cyc] = np.roll(cyc, -1)
-    hh, dh, th = contiger.contract_paths_host(nxt)
-    hd, dd, td = contiger.contract_paths(torch.from_numpy(nxt))
-    assert (hh != np.arange(M)).any() and th.any()
+    hh, dh, th = jcontiger.contract_paths_host(nxt)
+    hd, dd, td, n_bad = contract_cuda.rank_plain(torch.from_numpy(nxt))
+    assert (hh != np.arange(M)).any() and th.any() and int(n_bad) == 0
     np.testing.assert_array_equal(hd.numpy(), hh)
     np.testing.assert_array_equal(dd.numpy(), dh)
-    np.testing.assert_array_equal(td.numpy(), th.astype(bool))
+    want_tail = np.full(M, -1, np.int32)
+    want_tail[hh[th]] = np.flatnonzero(th)
+    np.testing.assert_array_equal(td.numpy(), want_tail)
     jh, jd, jt = jcontiger.contract_paths(jnp.asarray(nxt))
     np.testing.assert_array_equal(hd.numpy(), np.asarray(jh))
+    np.testing.assert_array_equal(dd.numpy(), np.asarray(jd))

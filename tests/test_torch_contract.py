@@ -1,18 +1,18 @@
 """Kernel K9, the contraction of the chain forest (``ops/contract_cuda``),
-against the host route of ``finalize_unitigs`` (the native walk
-``contract_paths_host``, numpy's ``revcomp_packed`` and
-``_path_summary_np``), bitwise.
+and its plain twins, bitwise.
 
-On the CPU the plain twin (``contract_plain``: ``contract_paths``, torch's
-``revcomp_packed`` and ``keep_rule_plain``) is held against the host route
-on ``chip_smoke.k9_cases``: paths, cycles (of one node and of two, none
-starting at its least node, with and without a splitter of K9's), padding
-rows, a mirrored forest, cycles only, no edge, M = 2, at k = 21, 31, 47 and
-63; and ``finalize_unitigs`` keeps its host route for numpy and CPU
-inputs.  Marked ``cuda`` (skipped without a GPU): K9 against the host route
-and the plain twin on the card, also on one path of 2^20 oriented nodes
-beside 2^12 cycles, and ``finalize_unitigs`` from CUDA tensors against
-numpy inputs, with its K9 span.  No JAX here, so the card's tests run with
+On the CPU the dispatchers take the plain twins (``rank_plain``, torch's
+``revcomp_packed`` and ``keep_plain``), held against the JAX package's
+contraction (its native walk ``contract_paths_host``, numpy's
+``revcomp_packed`` and ``_path_summary_np``) on ``chip_smoke.k9_cases``:
+paths, cycles (of one node and of two, none starting at its least node,
+with and without a splitter of K9's), padding rows, a mirrored forest,
+cycles only, no edge, M = 2, at k = 21, 31, 47 and 63; and
+``finalize_unitigs`` on CPU tensors against the JAX package's.  Marked
+``cuda`` (skipped without a GPU): K9 against the twins, also on one path
+of 2^20 oriented nodes beside 2^12 cycles, and ``finalize_unitigs`` from
+CUDA tensors against CPU tensors, with K9's three calls.  The card has no
+JAX, so there the tests that read it skip, and the rest run with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_contract.py
 """
@@ -30,14 +30,36 @@ from sh_assembly_tpu_torch.ops import bits, contract_cuda
 from sh_assembly_tpu_torch.utils import profiling
 
 CASES = {c[0]: c[1:] for c in chip_smoke.k9_cases()}
-K9_SPAN = "contiger:contract.walk.k9"
+STEPS = ("d2h", "walk", "revcomp", "keep rule")
+
+
+def jax_contiger():
+    """The JAX package's Contiger, the reference (the card has no JAX)."""
+    pytest.importorskip("jax")
+    from sh_assembly_tpu.models import contiger as jcontiger
+
+    return jcontiger
+
+
+def jax_k9(cn, hi, lo, k):
+    """The JAX package's contraction of a forest (numpy in and out) in the
+    form of ``chip_smoke.k9_host``: (head, dist, tail_of, keep, rhi, rlo),
+    tail_of -1 off the heads."""
+    jc = jax_contiger()
+    from sh_assembly_tpu.ops import kmerpack_np as jkpn
+
+    head, dist, is_tail = jc.contract_paths_host(cn)
+    rhi, rlo = jkpn.revcomp_packed(hi, lo, k)
+    keep = jc._path_summary_np(head, is_tail, hi, lo, rhi, rlo)
+    tail_of = np.full(len(cn), -1, np.int32)
+    tail_of[head[is_tail]] = np.flatnonzero(is_tail)
+    return head, dist, tail_of, keep, rhi, rlo
 
 
 @pytest.fixture(scope="module")
-def host_route():
-    """Each case's inputs and the host route's outputs."""
-    return {name: (case, chip_smoke.k9_host(*case))
-            for name, case in CASES.items()}
+def jax_route():
+    """Each case's inputs and the JAX package's outputs."""
+    return {name: (case, jax_k9(*case)) for name, case in CASES.items()}
 
 
 def _tensors(cn, hi, lo, device):
@@ -46,18 +68,18 @@ def _tensors(cn, hi, lo, device):
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_contract_plain_matches_host_route(host_route, name):
-    (cn, hi, lo, k), want = host_route[name]
+def test_contract_plain_matches_host_route(jax_route, name):
+    (cn, hi, lo, k), want = jax_route[name]
     before = contract_cuda.LAUNCHES
     got = contract_cuda.contract(*_tensors(cn, hi, lo, "cpu"), k)
-    assert contract_cuda.LAUNCHES == before  # CPU tensors take the twin
+    assert contract_cuda.LAUNCHES == before  # CPU tensors take the twins
     chip_smoke.k9_compare(name, got, want)
 
 
-def test_forests_hold_what_the_cases_promise(host_route):
+def test_forests_hold_what_the_cases_promise(jax_route):
     """Cycles (their nodes off their head), padding rows, shared hi words,
     and a keep rule that keeps some heads and drops others."""
-    (cn, hi, lo, _), (head, dist, keep, _, _) = host_route["mixed_k47"]
+    (cn, hi, lo, _), (head, dist, _, keep, _, _) = jax_route["mixed_k47"]
     # a node is on a cycle where its head has a predecessor
     has_prev = np.zeros(len(cn), bool)
     has_prev[cn[cn >= 0]] = True
@@ -66,7 +88,7 @@ def test_forests_hold_what_the_cases_promise(host_route):
     assert (hi == chip_smoke._SENT64).sum() > 300
     assert len(np.unique(hi)) < 0.95 * len(hi)  # shared hi words
     # the keep rule keeps one of each mirror pair in the mirrored forest
-    (_, _, _, _), (h2, _, k2, _, _) = host_route["mirrored"]
+    (_, _, _, _), (h2, _, _, k2, _, _) = jax_route["mirrored"]
     assert 0 < k2.sum() < (h2 == np.arange(len(h2))).sum()
 
 
@@ -78,17 +100,24 @@ def test_contract_refuses_what_it_does_not_take():
                  (cn, w, w, 64)):
         with pytest.raises(ValueError):
             contract_cuda.contract(*args)
-    with pytest.raises(ValueError):  # K9's wrappers take no CPU tensor
-        contract_cuda.contract_cuda(cn, w, w, 47)
-    with pytest.raises(ValueError):
-        contract_cuda.rank_cuda(cn)
-    # a target shared by two nodes, a target out of range
+    # K9's wrappers take no CPU tensor
+    for call in (lambda: contract_cuda.rank_cuda(cn),
+                 lambda: contract_cuda.revcomp_cuda(w, w, 47),
+                 lambda: contract_cuda.keep_cuda(cn, cn, w, w, w, w)):
+        with pytest.raises(ValueError):
+            call()
+    # a target shared by two nodes, a target out of range: n_bad, which the
+    # model reads and raises on
+    params = cfg.ContigerParams(k=47)
     for bad in ([1, -1, 1, -1, -1, -1, -1, -1], [9, -1, -1, -1, -1, -1, -1,
                                                   -1]):
         t = torch.tensor(bad, dtype=torch.int32)
         assert contract_cuda.count_bad(t) == 1
+        assert int(contract_cuda.contract(t, w, w, 47)[-1].item()) == 1
         with pytest.raises(ValueError, match="out of range or shared"):
-            contract_cuda.contract(t, w, w, 47)
+            contiger.finalize_unitigs(w, w, np.ones(4, bool),
+                                      torch.full((4,), 5, dtype=torch.int32),
+                                      t, params)
 
 
 def _finalize_inputs(seed, k):
@@ -104,14 +133,26 @@ def _finalize_inputs(seed, k):
     return hi, lo, real, counts, cn, params, is_seed
 
 
-def _finalize(hi, lo, real, counts, cn, params, is_seed, device, as_numpy):
+def _finalize(hi, lo, real, counts, cn, params, is_seed, device):
+    """The port's ``finalize_unitigs`` on tensors on ``device`` -> (its
+    unitigs, the spans it opened)."""
     profiling.reset()
     h, l = bits.from_u64_np(hi, device), bits.from_u64_np(lo, device)
     c = torch.from_numpy(counts).to(device)
-    chain = cn if as_numpy else torch.from_numpy(cn).to(device)
-    out = contiger.finalize_unitigs(h, l, real, c, chain, params,
+    out = contiger.finalize_unitigs(h, l, real, c,
+                                    torch.from_numpy(cn).to(device), params,
                                     is_seed=is_seed)
     return out, dict(profiling.GLOBAL.stats)
+
+
+def jax_finalize(hi, lo, real, counts, cn, params, is_seed):
+    """The JAX package's ``finalize_unitigs`` on the same forest (numpy)."""
+    jc = jax_contiger()
+    from sh_assembly_tpu import config as jcfg
+
+    return jc.finalize_unitigs(hi, lo, real, counts, cn,
+                               jcfg.ContigerParams(**vars(params)),
+                               is_seed=is_seed)
 
 
 def _same_unitigs(a, b):
@@ -125,17 +166,18 @@ def _same_unitigs(a, b):
 
 @pytest.mark.parametrize("k", [21, 47, 63])
 def test_finalize_unitigs_host_route_for_numpy_and_cpu_inputs(k):
+    """CPU tensors take the plain twins, open each step's span once, and
+    give the JAX package's unitigs on the same forest (numpy)."""
     args = _finalize_inputs(200 + k, k)
+    want = jax_finalize(*args)
     before = contract_cuda.LAUNCHES
-    a, sa = _finalize(*args, "cpu", as_numpy=True)
-    b, sb = _finalize(*args, "cpu", as_numpy=False)
+    got, stats = _finalize(*args, "cpu")
     assert contract_cuda.LAUNCHES == before
-    _same_unitigs(a, b)
-    assert a.n > 10
-    for stats in (sa, sb):
-        assert K9_SPAN not in stats
-        for step in ("d2h", "walk", "revcomp", "keep rule"):
-            assert stats[f"contiger:contract.{step}"].calls == 1
+    _same_unitigs(got, want)
+    assert got.n > 10
+    for step in STEPS:
+        assert stats[f"contiger:contract.{step}"].calls == 1
+        assert stats[f"contiger:contract.{step}"].parent == "contiger:contract"
 
 
 # --------------------------------------------------------------------------
@@ -151,6 +193,7 @@ def gpu():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(CASES) + ["long_path"])
 def test_k9_matches_host_route_and_plain_twin(gpu, name):
+    """K9 on the card against the plain twins on the CPU (``k9_host``)."""
     if name == "long_path":
         cn, hi, lo, k = next(c for c in chip_smoke.k9_cases(large=True)
                              if c[0] == name)[1:]
@@ -163,19 +206,20 @@ def test_k9_matches_host_route_and_plain_twin(gpu, name):
     torch.cuda.synchronize()
     assert contract_cuda.LAUNCHES == before + 3
     chip_smoke.k9_compare(name, got, want)
-    chip_smoke.k9_compare(name, contract_cuda.contract_plain(*args, k), want)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [21, 47, 63])
 def test_finalize_unitigs_cuda_matches_numpy_inputs(gpu, k):
+    """CUDA tensors take K9 (three calls) and give the CPU tensors' (the
+    plain twins') unitigs, each step's span opened once."""
     args = _finalize_inputs(300 + k, k)
-    want, sw = _finalize(*args, "cpu", as_numpy=True)
-    got, sg = _finalize(*args, gpu, as_numpy=False)
+    want, _ = _finalize(*args, "cpu")
+    before = contract_cuda.LAUNCHES
+    got, sg = _finalize(*args, gpu)
+    assert contract_cuda.LAUNCHES == before + 3
     _same_unitigs(got, want)
-    assert sg[K9_SPAN].calls == 1 and K9_SPAN not in sw
-    assert sg[K9_SPAN].parent == "contiger:contract.walk"
-    for step in ("d2h", "walk", "revcomp", "keep rule"):
+    for step in STEPS:
         assert sg[f"contiger:contract.{step}"].calls == 1
 
 
@@ -185,4 +229,4 @@ def test_k9_reports_a_malformed_forest(gpu):
     for bad in ([1, -1, 1, -1, -1, -1, -1, -1], [9, -1, -1, -1, -1, -1, -1,
                                                   -1]):
         t = torch.tensor(bad, dtype=torch.int32, device=gpu)
-        assert int(contract_cuda.contract(t, w, w, 47)[5].item()) == 1
+        assert int(contract_cuda.contract(t, w, w, 47)[-1].item()) == 1

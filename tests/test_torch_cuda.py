@@ -22,9 +22,9 @@ from sh_assembly_tpu_torch import config as cfg
 from sh_assembly_tpu_torch.io import fastq
 from sh_assembly_tpu_torch.models import counter
 from sh_assembly_tpu_torch.models import contiger
-from sh_assembly_tpu_torch.ops import blocksort_cuda, hash_append_cuda, \
-    join_cuda, merge128_cuda, merge_cuda, node_join_cuda, probe_cuda, \
-    stage_cuda
+from sh_assembly_tpu_torch.ops import blocksort_cuda, contract_cuda, \
+    hash_append_cuda, join_cuda, members_cuda, merge128_cuda, merge_cuda, \
+    node_join_cuda, probe_cuda, stage_cuda
 from sh_assembly_tpu_torch.ops import kmerpack as kp
 from sh_assembly_tpu_torch.ops import spectrum as sp
 
@@ -301,7 +301,8 @@ def test_sharded_counter_cuda_matches_cpu(gpu, tmp_path, monkeypatch):
 
 def test_sharded_contiger_cuda_matches_cpu(gpu, tmp_path):
     """contiger_sharded over 4 shards from one counted spectrum: the same
-    unitig arrays on the card (through K2 and K3) as on the CPU."""
+    unitig arrays on the card (through K2, K3, K6-K8, and K9 and K10 in
+    the tail) as on the CPU."""
     from sh_assembly_tpu_torch.parallel import driver
 
     files = _mesh_reads(tmp_path)
@@ -314,7 +315,7 @@ def test_sharded_contiger_cuda_matches_cpu(gpu, tmp_path):
     for dev in ("cpu", gpu):
         sc = driver.make_counter(sizing, 4, bc, device=dev)
         mods = (join_cuda, merge128_cuda, stage_cuda, node_join_cuda,
-                probe_cuda)
+                probe_cuda, contract_cuda, members_cuda)
         before = [m.LAUNCHES for m in mods]
         au = driver.contiger_sharded(
             sc, sc.from_host(keys, counts), files,
@@ -322,9 +323,10 @@ def test_sharded_contiger_cuda_matches_cpu(gpu, tmp_path):
         out[str(dev)] = (au, tuple(m.LAUNCHES - b
                                    for m, b in zip(mods, before)))
     (ac, lc), (ag, lg) = out["cpu"], out[str(gpu)]
-    assert lc == (0, 0, 0, 0, 0) and lg[0] > 0 and lg[1] > 0
+    assert lc == (0,) * 7 and lg[0] > 0 and lg[1] > 0
     assert lg[2] > 0 and lg[2] % 4 == 0  # K6: once a shard a batch
     assert lg[3] > 0 and lg[4] > 0  # K7 and K8: the mesh's joins and probes
+    assert lg[5:] == (3, 1)  # the tail: K9's three calls, K10's placement
     assert ac.n == ag.n > 0
     for f in ("seq_codes", "offsets", "med", "after_ptr", "after_val",
               "before_ptr", "before_val"):
