@@ -1,15 +1,25 @@
-"""ctypes bindings for the native C++ reader (cpp/fastq_reader.cpp).
+"""ctypes bindings for the port's native reader (cpp/fastq_reader.cpp).
 
-Builds lazily via `make -C cpp` on first use if the toolchain is present;
-falls back to the pure-Python reader otherwise (io/fastq.py — identical
-semantics, validated against each other in tests/test_native_reader.py).
+The reader decodes one file on all its threads: an I/O thread cuts the
+stream into record-aligned parts, workers encode, N-segment, tile and pack
+them into rows, and the batches leave in file order (several files one after
+another, in list order).  It is built with the C++ compiler on first use into
+``sh_assembly_tpu_torch/cpp/build/`` (ignored by git), under a file name that
+carries the hash of the source and the flags, so an edited source is rebuilt;
+without a compiler the streams fall back to the pure-Python reader
+(io/fastq.py), which gives the same batches.
+
+The repo-level library (``cpp/``: the JAX package's reader and the ``.ser``
+transcoder that formats/cqf_ser.py binds) is loaded by ``_load``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
+from dataclasses import dataclass
 from typing import Iterator
 
 import numpy as np
@@ -34,11 +44,12 @@ def _build() -> bool:
         )
         return True
     except Exception as e:  # toolchain missing: stay on the Python path
-        log(f"[io] native reader unavailable ({e}); using Python reader")
+        log(f"[io] repo-level native library unavailable ({e})")
         return False
 
 
 def _load():
+    """The repo-level native library (cpp/build/libshasm.so), or None."""
     global _lib, _tried
     if _lib is not None or _tried:
         return _lib
@@ -62,7 +73,7 @@ def _load():
     except AttributeError:
         ver = 1
     if ver != _ABI_VERSION:
-        log(f"[io] native reader ABI {ver} != {_ABI_VERSION}; rebuilding")
+        log(f"[io] native library ABI {ver} != {_ABI_VERSION}; rebuilding")
         try:
             os.remove(_LIB_PATH)
         except OSError:
@@ -70,56 +81,145 @@ def _load():
         if not _build():
             return None
         lib = open_lib()
-        if lib is None:
+        if lib is None or lib.shr_abi_version() != _ABI_VERSION:
+            log("[io] native library ABI still stale")
             return None
-        if lib.shr_abi_version() != _ABI_VERSION:
-            log("[io] native reader ABI still stale; using Python reader")
-            return None
-    lib.shr_open.restype = ctypes.c_void_p
-    lib.shr_open.argtypes = [
-        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, ctypes.c_int,
-        ctypes.c_int,
-    ]
-    lib.shr_next_batch.restype = ctypes.c_int
-    lib.shr_next_batch.argtypes = [
-        ctypes.c_void_p,
-        ctypes.POINTER(ctypes.c_uint8),
-        ctypes.POINTER(ctypes.c_int32),
-        ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_int32),
-    ]
-    lib.shr_next_batch_packed.restype = ctypes.c_int
-    lib.shr_next_batch_packed.argtypes = [
-        ctypes.c_void_p,
-        ctypes.POINTER(ctypes.c_uint8),
-        ctypes.POINTER(ctypes.c_uint8),
-        ctypes.POINTER(ctypes.c_int32),
-        ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_int32),
-    ]
-    lib.shr_failed.restype = ctypes.c_int
-    lib.shr_failed.argtypes = [ctypes.c_void_p]
-    lib.shr_close.restype = None
-    lib.shr_close.argtypes = [ctypes.c_void_p]
     _lib = lib
     return _lib
 
 
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_READER_SRC = os.path.join(_PKG, "cpp", "fastq_reader.cpp")
+_READER_BUILD = os.path.join(_PKG, "cpp", "build")
+_CXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-shared",
+              "-Wall"]
+_CXX_LIBS = ["-lz", "-lpthread", "-ldl"]
+_reader = None
+_reader_tried = False
+
+
+def _reader_path() -> str:
+    """Where cpp/fastq_reader.cpp builds to: the name carries a hash of the
+    source and of the flags."""
+    digest = hashlib.sha1(" ".join(_CXX_FLAGS + _CXX_LIBS).encode())
+    with open(_READER_SRC, "rb") as f:
+        digest.update(f.read())
+    return os.path.join(_READER_BUILD,
+                        f"libfastq_reader-{digest.hexdigest()[:12]}.so")
+
+
+def _reader_lib():
+    """The port's reader library, built on first use, or None without a
+    C++ compiler."""
+    global _reader, _reader_tried
+    if _reader is not None or _reader_tried:
+        return _reader
+    _reader_tried = True
+    out = _reader_path()
+    if not os.path.exists(out):
+        os.makedirs(_READER_BUILD, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        try:
+            subprocess.run(["g++", *_CXX_FLAGS, "-o", tmp, _READER_SRC,
+                            *_CXX_LIBS], capture_output=True, check=True,
+                           timeout=300)
+        except (OSError, subprocess.SubprocessError) as e:
+            log(f"[io] native reader unavailable ({e}); using Python reader")
+            return None
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
+    lib = ctypes.CDLL(out)
+    u8p, i32p = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int32)
+    lib.fqr_has_bz2.restype = ctypes.c_int
+    lib.fqr_has_bz2.argtypes = []
+    lib.fqr_open.restype = ctypes.c_void_p
+    lib.fqr_open.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64]
+    lib.fqr_next_batch.restype = ctypes.c_int
+    lib.fqr_next_batch.argtypes = [
+        ctypes.c_void_p, u8p, i32p, ctypes.c_int, ctypes.c_int, i32p]
+    lib.fqr_next_batch_packed.restype = ctypes.c_int
+    lib.fqr_next_batch_packed.argtypes = [
+        ctypes.c_void_p, u8p, u8p, i32p, ctypes.c_int, ctypes.c_int, i32p]
+    lib.fqr_failed.restype = ctypes.c_int
+    lib.fqr_failed.argtypes = [ctypes.c_void_p]
+    lib.fqr_stats.restype = None
+    lib.fqr_stats.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_double)]
+    lib.fqr_close.restype = None
+    lib.fqr_close.argtypes = [ctypes.c_void_p]
+    _reader = lib
+    return _reader
+
+
 def available() -> bool:
-    return _load() is not None
+    return _reader_lib() is not None
+
+
+@dataclass
+class ReaderStats:
+    """What one native stream reports when it ends: the parts decoded, the
+    workers that decoded at least one, and the seconds the hand-off waited
+    for the next part in order.  All zero on the Python fallback."""
+
+    parts: int = 0
+    workers: int = 0
+    wait_s: float = 0.0
 
 
 def _needs_py_fallback(lib, fmode: str, paths: list[str]) -> bool:
     """bz2 inputs stay on the Python reader only when the native library
-    could not bind libbz2 at runtime (cpp/fastq_reader.cpp dlopen path;
-    reference handles .bz2 natively via getFileReader, CQF_mt.h:933-957)."""
+    could not bind libbz2 at run time (the reference handles .bz2 natively
+    via getFileReader, CQF_mt.h:933-957)."""
     wants_bz2 = fmode == "b" or any(p.endswith(".bz2") for p in paths)
-    if not wants_bz2:
-        return False
+    return wants_bz2 and lib.fqr_has_bz2() != 1
+
+
+def _native_stream(lib, paths, k, B, L, n_threads, packed, part_bytes,
+                   stats):
+    """Batches from an open native reader; closes it when the stream ends
+    or is abandoned, and fills `stats` before that."""
+    arr = (ctypes.c_char_p * len(paths))(*[p.encode() for p in paths])
+    h = lib.fqr_open(arr, len(paths), k, n_threads, L, int(packed),
+                     part_bytes)
+    if not h:
+        raise RuntimeError(f"fqr_open refused k={k}, row length {L}")
+    as_u8 = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+    as_i32 = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
     try:
-        return lib.shr_has_bz2() != 1
-    except AttributeError:
-        return True
+        while True:
+            lengths = np.zeros(B, dtype=np.int32)
+            seed_col = np.full(B, -1, dtype=np.int32)
+            if packed:
+                rows = np.zeros((B, L // 4), dtype=np.uint8)
+                nmask = np.zeros((B, L // 8), dtype=np.uint8)
+                n = lib.fqr_next_batch_packed(h, as_u8(rows), as_u8(nmask),
+                                              as_i32(lengths), B, L,
+                                              as_i32(seed_col))
+            else:
+                rows = np.full((B, L), pyfastq._PAD, dtype=np.uint8)
+                n = lib.fqr_next_batch(h, as_u8(rows), as_i32(lengths), B, L,
+                                       as_i32(seed_col))
+            if n < 0:
+                raise RuntimeError(f"native reader refused batch ({B}, {L})")
+            if n == 0:
+                if lib.fqr_failed(h):
+                    raise IOError("native reader failed (bad file?)")
+                break
+            if packed:
+                yield pyfastq.PackedBatch(rows, nmask, lengths, n, seed_col)
+            else:
+                yield pyfastq.Batch(rows, lengths, n, seed_col)
+    finally:
+        if stats is not None:
+            parts, workers = ctypes.c_int64(), ctypes.c_int32()
+            wait_s = ctypes.c_double()
+            lib.fqr_stats(h, ctypes.byref(parts), ctypes.byref(workers),
+                          ctypes.byref(wait_s))
+            stats.parts, stats.workers = parts.value, workers.value
+            stats.wait_s = wait_s.value
+        lib.fqr_close(h)
 
 
 def batches_from_files(
@@ -129,39 +229,19 @@ def batches_from_files(
     reads_per_batch: int = 16384,
     max_read_len: int = 160,
     n_threads: int = 4,
+    stats: ReaderStats | None = None,
+    _part_bytes: int = 0,
 ) -> Iterator[pyfastq.Batch]:
-    """Native batch stream; falls back to the Python reader for bzip2 or a
-    missing toolchain."""
-    lib = _load()
+    """Native batch stream; falls back to the Python reader for bzip2
+    without libbz2 or a missing toolchain.  `stats`, if given, is filled
+    when the stream ends; `_part_bytes` sets the part size (0: 8 MB)."""
+    lib = _reader_lib()
     if lib is None or _needs_py_fallback(lib, fmode, paths):
         yield from pyfastq.batches_from_files(
             paths, k, fmode, reads_per_batch, max_read_len)
         return
-
-    arr = (ctypes.c_char_p * len(paths))(*[p.encode() for p in paths])
-    h = lib.shr_open(arr, len(paths), k, n_threads)
-    if not h:
-        raise RuntimeError("shr_open failed")
-    B, L = reads_per_batch, max_read_len
-    try:
-        while True:
-            codes = np.full((B, L), pyfastq._PAD, dtype=np.uint8)
-            lengths = np.zeros(B, dtype=np.int32)
-            seed_col = np.full(B, -1, dtype=np.int32)
-            n = lib.shr_next_batch(
-                h,
-                codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-                lengths.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-                B, L,
-                seed_col.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-            )
-            if n <= 0:
-                if lib.shr_failed(h):
-                    raise IOError("native reader failed (bad file?)")
-                break
-            yield pyfastq.Batch(codes, lengths, n, seed_col)
-    finally:
-        lib.shr_close(h)
+    yield from _native_stream(lib, paths, k, reads_per_batch, max_read_len,
+                              n_threads, False, _part_bytes, stats)
 
 
 def packed_batches_from_files(
@@ -171,13 +251,17 @@ def packed_batches_from_files(
     reads_per_batch: int = 16384,
     row_len: int = 160,
     n_threads: int = 4,
+    stats: ReaderStats | None = None,
+    _part_bytes: int = 0,
 ):
     """Batch stream in device transport format (fastq.PackedBatch): the
     native reader encodes + N-segments + 2-bit packs in C++; the Python
     fallback packs with packio.pack_np.  row_len must be a multiple of 8.
+    `stats` and `_part_bytes` as in batches_from_files.
     """
-    assert row_len % 8 == 0, "row_len must be a multiple of 8"
-    lib = _load()
+    if row_len % 8:
+        raise ValueError(f"row_len {row_len} is not a multiple of 8")
+    lib = _reader_lib()
     B, L = reads_per_batch, row_len
     if lib is None or _needs_py_fallback(lib, fmode, paths):
         from ..ops import packio
@@ -186,29 +270,5 @@ def packed_batches_from_files(
             p, m = packio.pack_np(b.codes)
             yield pyfastq.PackedBatch(p, m, b.lengths, b.n_rows, b.seed_col)
         return
-
-    arr = (ctypes.c_char_p * len(paths))(*[p.encode() for p in paths])
-    h = lib.shr_open(arr, len(paths), k, n_threads)
-    if not h:
-        raise RuntimeError("shr_open failed")
-    try:
-        while True:
-            packed = np.zeros((B, L // 4), dtype=np.uint8)
-            nmask = np.zeros((B, L // 8), dtype=np.uint8)
-            lengths = np.zeros(B, dtype=np.int32)
-            seed_col = np.full(B, -1, dtype=np.int32)
-            n = lib.shr_next_batch_packed(
-                h,
-                packed.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-                nmask.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-                lengths.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-                B, L,
-                seed_col.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-            )
-            if n <= 0:
-                if lib.shr_failed(h):
-                    raise IOError("native reader failed (bad file?)")
-                break
-            yield pyfastq.PackedBatch(packed, nmask, lengths, n, seed_col)
-    finally:
-        lib.shr_close(h)
+    yield from _native_stream(lib, paths, k, B, L, n_threads, True,
+                              _part_bytes, stats)

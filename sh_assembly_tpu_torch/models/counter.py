@@ -50,6 +50,8 @@ class BuildStats:
     rounds: int = 0  # deNoise rounds fired (mid-stream and on the last chunk)
     swept: int = 0  # keys those rounds dropped
     early_merges: int = 0  # merges the near-trigger rule fired
+    reader_parts: int = 0  # parts the native reader decoded
+    reader_workers: int = 0  # its workers that decoded at least one
 
 
 def _prefetch(it: Iterator, depth: int = 8) -> Iterator:
@@ -380,8 +382,13 @@ def build_spectrum_from_files(
 
     batch_cfg = batch_cfg or default_batch_cfg(sizing)
     Lp = (batch_cfg.max_read_len + 7) // 8 * 8
+    reader = native.ReaderStats()
     stream = native.packed_batches_from_files(
         files, sizing.k, fmode, batch_cfg.reads_per_batch, Lp,
-        n_threads=n_threads,
+        n_threads=n_threads, stats=reader,
     )
-    return build_spectrum(stream, sizing, batch_cfg=batch_cfg, **kw)
+    spec, stats = build_spectrum(stream, sizing, batch_cfg=batch_cfg, **kw)
+    stats.reader_parts, stats.reader_workers = reader.parts, reader.workers
+    log(f"reader: {reader.parts} parts on {reader.workers} workers; the "
+        f"hand-off waited {reader.wait_s:.3f}s for parts in order")
+    return spec, stats
