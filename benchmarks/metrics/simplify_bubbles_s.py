@@ -1,0 +1,13 @@
+"""simplify_bubbles_s: bubble popping
+(models/simplify_arrays.ArrayGraph.pop_bubbles), summed over the
+simplification's rounds; the span `simplify.bubbles`, seconds a job (the
+program's own phase times, utils/profiling.GLOBAL.stats, read after each
+job; None where the span never ran)."""
+
+PHASES = ("simplify.bubbles",)
+
+
+def read(ctx):
+    seen = [sum(p[n] for n in PHASES if n in p) for p in ctx["phases"]
+            if any(n in p for n in PHASES)]
+    return sum(seen) / len(ctx["phases"]) if seen else None

@@ -108,7 +108,9 @@ def _run(args, device, t0: float) -> int:
     with profiling.phase("simplify"):
         codes, offs, cov, sstats = \
             simplify_arrays.simplify_to_contigs_arrays(arrays)
-        simplify_arrays.write_contigs_arrays(args.output, codes, offs, cov)
+        with profiling.phase("simplify.write", sync=False):
+            simplify_arrays.write_contigs_arrays(args.output, codes, offs,
+                                                 cov)
     summary = simplify_arrays.contig_stats_arrays(
         offs, genome_size=args.genome_size or None)
     log(f"removed tips={sstats['tips']} bubbles={sstats['bubbles']} "

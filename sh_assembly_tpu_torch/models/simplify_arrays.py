@@ -27,6 +27,12 @@ Graph convention matches models/simplify.SimpleGraph and the reference
 (after-links), side 1 = beginning (before-links).  Row r = 2*i + side in
 the CSR; conveniently row index == oriented-node index (orientation o
 exits via side o).
+
+Host spans (``utils/profiling``, all ``sync=False``): ``simplify.build``
+(the CSR graph from the Contiger's arrays), ``simplify.tips``,
+``simplify.bubbles`` and ``simplify.ec`` (the three passes, summed over
+rounds) and ``simplify.compact`` (the three recompactions a round).  Inside
+the pipeline's ``simplify`` phase they are its children.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..utils import profiling
 from .simplify import (BUBBLE_KADD, BUBBLE_KMULT, EC_KMULT, EC_RCTC,
                        MAX_ROUNDS, TIP_RCTC, TIP_RCTC_KMULT, TIP_TOPO_KMULT)
 
@@ -418,12 +425,18 @@ class ArrayGraph:
     def simplify(self, max_rounds: int = MAX_ROUNDS) -> dict:
         stats = {"tips": 0, "bubbles": 0, "ec": 0, "rounds": 0}
         for _ in range(max_rounds):
-            t = self.clip_tips()
-            self.compact()
-            b = self.pop_bubbles()
-            self.compact()
-            e = self.remove_erroneous_connections()
-            self.compact()
+            with profiling.phase("simplify.tips", sync=False):
+                t = self.clip_tips()
+            with profiling.phase("simplify.compact", sync=False):
+                self.compact()
+            with profiling.phase("simplify.bubbles", sync=False):
+                b = self.pop_bubbles()
+            with profiling.phase("simplify.compact", sync=False):
+                self.compact()
+            with profiling.phase("simplify.ec", sync=False):
+                e = self.remove_erroneous_connections()
+            with profiling.phase("simplify.compact", sync=False):
+                self.compact()
             stats["tips"] += t
             stats["bubbles"] += b
             stats["ec"] += e
@@ -507,7 +520,8 @@ def _contract_np(chain_next: np.ndarray):
 def simplify_to_contigs_arrays(au, max_rounds: int = MAX_ROUNDS):
     """ArrayUnitigs -> (contig seq_codes, offsets, cov, stats); the
     no-Python-objects pipeline path."""
-    g = ArrayGraph.from_array_unitigs(au)
+    with profiling.phase("simplify.build", sync=False):
+        g = ArrayGraph.from_array_unitigs(au)
     stats = g.simplify(max_rounds)
     codes, offs, cov = g.contigs_arrays()
     return codes, offs, cov, stats

@@ -1,7 +1,9 @@
 """The port's phase timer (``utils/profiling.py``): nested spans and their
 parents, spans that leave CUDA alone, a stack of open spans a thread, the
 report's trees and coverage; then the spans inside the host phases of a
-pipeline run and a count run on the CPU."""
+pipeline run and a count run on the CPU, and the simplification's spans
+in a pipeline run whose ``contigs.fa`` is the JAX package's, byte for
+byte."""
 
 import re
 import sys
@@ -10,6 +12,7 @@ import time
 
 import pytest
 
+from sh_assembly_tpu.cli import pipeline as jpipeline_cli
 from sh_assembly_tpu_torch import config as cfg
 from sh_assembly_tpu_torch.cli import pipeline as pipeline_cli
 from sh_assembly_tpu_torch.io import fastq
@@ -30,6 +33,9 @@ CONTIGER_SPANS = {
        for s in ("members", "dedup", "medians", "links", "components",
                  "sequences")},
 }
+SIMPLIFY_SPANS = {f"simplify.{s}": "simplify"
+                  for s in ("build", "tips", "bubbles", "ec", "compact",
+                            "write")}
 
 
 def test_a_nested_span_records_its_parent():
@@ -183,11 +189,11 @@ def _expect(spans):
 def test_pipeline_run_records_every_host_span(workload, tmp_path):
     assert pipeline_cli.main(_pipeline_argv(workload, 47, tmp_path, "port")
                              + ["--device", "cpu"]) == 0
-    _expect({**COUNT_SPANS, **CONTIGER_SPANS})
+    _expect({**COUNT_SPANS, **CONTIGER_SPANS, **SIMPLIFY_SPANS})
     stats = profiling.GLOBAL.stats
     assert stats["count:reader next"].thread == "prefetch"
     for parent, n in (("contiger:contract", 4),
-                      ("contiger:host assembly", 6)):
+                      ("contiger:host assembly", 6), ("simplify", 6)):
         kids = [s.seconds for name, s in stats.items()
                 if name.startswith(parent + ".")]
         assert len(kids) == n
@@ -195,6 +201,37 @@ def test_pipeline_run_records_every_host_span(workload, tmp_path):
     # one wait a batch pulled, and one more for the stream's end
     assert (stats["count:host read/pack.wait"].calls
             == stats["count:host read/pack"].calls)
+
+
+@pytest.mark.parametrize("k", [21, 47])
+def test_simplify_spans_never_sync_and_leave_contigs_as_jax_writes_them(
+        workload, tmp_path, monkeypatch, k):
+    """The six spans inside ``simplify`` are its children, one build and
+    one write a job, a pass each and three recompactions a round; none
+    of them synchronises (each is host work); and the contigs are the
+    JAX pipeline's, byte for byte."""
+    assert jpipeline_cli.main(_pipeline_argv(workload, k, tmp_path,
+                                             "jax")) == 0
+    synced = []
+    monkeypatch.setattr(profiling, "_sync", lambda: synced.append(
+        profiling.GLOBAL._stack()[-1]))
+    assert pipeline_cli.main(_pipeline_argv(workload, k, tmp_path, "port")
+                             + ["--device", "cpu"]) == 0
+    _expect(SIMPLIFY_SPANS)
+    st = profiling.GLOBAL.stats
+    assert "simplify" in synced  # the patch is the one the timer calls
+    assert not [n for n in synced if n in SIMPLIFY_SPANS]
+    rounds = st["simplify.tips"].calls
+    assert rounds >= 1
+    assert st["simplify.bubbles"].calls == st["simplify.ec"].calls == rounds
+    assert st["simplify.compact"].calls == 3 * rounds
+    assert st["simplify.build"].calls == st["simplify.write"].calls == 1
+    assert all(st[n].thread == st["simplify"].thread for n in SIMPLIFY_SPANS)
+    assert (sum(st[n].seconds for n in SIMPLIFY_SPANS)
+            <= st["simplify"].seconds)
+    ref = (tmp_path / "contigs_jax.fa").read_bytes()
+    assert ref.count(b">") > 0
+    assert (tmp_path / "contigs_port.fa").read_bytes() == ref
 
 
 def test_count_run_records_the_reader_and_its_wait(workload):
