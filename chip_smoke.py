@@ -8,10 +8,10 @@ exits non-zero without printing a result:
 
   0. device: nvidia-smi name and power limit, torch/CUDA versions; no GPU
      is an error.
-  1. build: compiles kernels K1-K10 (csrc/merge_dedup.cu, count_join.cu,
+  1. build: compiles kernels K1-K11 (csrc/merge_dedup.cu, count_join.cu,
      merge128.cu, block_sort.cu, hash_append.cu, stage_windows.cu,
-     node_join.cu, node_probes.cu, contract.cu, members.cu; hash_append and
-     stage_windows include
+     node_join.cu, node_probes.cu, contract.cu, members.cu, path_stats.cu;
+     hash_append and stage_windows include
      csrc/tile_scan.cuh) from the checkout, one nvcc each, in parallel;
      prints K5's and K6's tiles at their real shapes and for rows of
      20,000 bases (rows or segments a block, shared memory, registers,
@@ -55,14 +55,14 @@ exits non-zero without printing a result:
   6. parity: the pipeline CLI (reads -> unitigs -> contigs) on the bench's
      end-to-end shape with --device cpu and --device cuda; unitigs.fa and
      contigs.fa must be byte-identical, the CUDA run must launch every
-     kernel of the path (K1-K3, K5-K10) and the CPU run none; then the
+     kernel of the path (K1-K3, K5-K11) and the CPU run none; then the
      Contiger CLI with --device cuda on the CPU run's .ser, whose
      unitigs.fa must equal the CPU pipeline's and which must launch K2,
-     K3 and K6-K10.
+     K3 and K6-K11.
   7. main path at real size: the pipeline CLI on a 12 Mbp genome (30x of
      150 bp reads); prints the phase breakdown, peak device memory, node,
      unitig and contig counts and N50; the contigs must total within 10%
-     of the genome, every kernel of the path (K1, K2, K3, K5-K10) must
+     of the genome, every kernel of the path (K1, K2, K3, K5-K11) must
      launch, K5 by the stack (fewer launches and append calls than
      batches), K6 once a ``_stage_super`` call with no call of its plain
      chain, K8 once a call of the probe programs (``phantom_candidates``,
@@ -70,8 +70,10 @@ exits non-zero without printing a result:
      an append a closure round that found phantoms, a probe a round and
      one for the graph) with no one-shot ``join2``, no call of
      ``node_probes_plain`` or ``join2_plain``, the contraction through
-     K9 (its three calls) and the members step through K10 (one
-     placement); prints every K7 call's device time; then replays the
+     K9 (its three calls), the members step through K10 (one
+     placement), the medians through K11 and the link join through a K7
+     table of its own (a build and a probe, once each); prints every K7
+     call's device time; then replays the
      closure and the graph probe on the run's inputs and holds every
      probe of the table against ``join2_plain`` on that round's padded
      store, and runs ``finalize_unitigs`` on the run's own forest moved
@@ -212,6 +214,18 @@ exits non-zero without printing a result:
      onto a kept path (refused); then at phase 17's extent (2^24 oriented
      nodes), timed as phase 14 times K5 beside the bound and the plain
      twin on the card, with its launches on phase 7's main path.
+ 19. K11 (each kept path's median, count sum and seed flag) and the link
+     join through K7 against their plain twins on the CPU and on the card,
+     bitwise: ``k11_cases`` (paths of one member, every length a warp
+     takes, lengths around the warp's and the block's limits and far
+     beyond, counts up to and at the cap, equal counts, even paths of two
+     values, no seed mask, no path) and ``links_cases`` (the ends of
+     pieces of a genome at k = 21-63 with reversed pieces, siblings,
+     palindromic paths and repeated keys, one path, none); then both at
+     phase 17's extent (K10's members of its forest) and at the yeast
+     cell's (``YEAST_PATHS``), timed as phase 14 times K5 beside their
+     bounds and the plain twins on the card, with their launches on
+     phase 7's main path.
 
 ``python3 chip_smoke.py --nccl-processes N`` runs phases 0, 1 and 11a
 alone at N processes x 1 shard over NCCL, a card each (N cards).
@@ -254,6 +268,7 @@ import shutil
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 
@@ -1431,15 +1446,49 @@ def k10_cases(large: bool = False):
             mirror=True), s["k"])
 
 
+class K10Members(NamedTuple):
+    """The members of kept oriented paths in (head, dist) order, numpy: the
+    form of the JAX package's members step (the first lines of its
+    ``_finalize_host``)."""
+
+    ai: np.ndarray  # int64 oriented index
+    node_i: np.ndarray  # int64 ai >> 1
+    ohi: np.ndarray  # uint64 oriented k-mer
+    olo: np.ndarray
+    lastb: np.ndarray  # uint8 its last base
+    counts_mem: np.ndarray  # int64 its node's count
+    starts: np.ndarray  # int64 [P] each path's first member
+    lens: np.ndarray  # int64 [P]
+    tail_pos: np.ndarray  # int64 [P] each path's last member
+    head_idx: np.ndarray  # int64 [P] each path's head
+
+
+def k10_numpy(placed) -> K10Members | None:
+    """K10's (or its plain twin's) output tensors, every one of them, as a
+    ``K10Members``; None where there is no member."""
+    from sh_assembly_tpu_torch.ops import bits
+
+    ai_t, ohi, olo, lastb, counts, starts, head_idx = placed
+    if ai_t.numel() == 0:
+        return None
+    ai = ai_t.cpu().numpy().astype(np.int64)
+    starts = starts.cpu().numpy().astype(np.int64)
+    lens = np.diff(np.r_[starts, len(ai)])
+    return K10Members(ai, ai >> 1, bits.to_u64_np(ohi), bits.to_u64_np(olo),
+                      lastb.cpu().numpy(),
+                      counts.cpu().numpy().astype(np.int64), starts, lens,
+                      starts + lens - 1,
+                      head_idx.cpu().numpy().astype(np.int64))
+
+
 def k10_host(chain_next, hi, lo, real, counts, k: int):
     """The plain twins' members step on a k10_cases case, on the CPU (tier-1
-    holds them against the JAX package) -> the ``_Members`` the host
-    assembly reads (None where no path has a member)."""
-    from sh_assembly_tpu_torch.models import contiger
+    holds them against the JAX package) -> ``K10Members`` (None where no
+    path has a member)."""
     from sh_assembly_tpu_torch.ops import members_cuda
 
     args = k10_inputs(chain_next, hi, lo, real, counts, k, "cpu")
-    return contiger._members_to_host(members_cuda.members(*args, k))
+    return k10_numpy(members_cuda.members(*args, k))
 
 
 def k10_inputs(chain_next, hi, lo, real, counts, k: int, device):
@@ -1459,11 +1508,9 @@ def k10_inputs(chain_next, hi, lo, real, counts, k: int, device):
 
 
 def k10_compare(name, got, want) -> None:
-    """K10's or its plain twin's outputs (tensors), as the host assembly
-    reads them (``_members_to_host``), against ``k10_host``'s, bitwise."""
-    from sh_assembly_tpu_torch.models import contiger
-
-    got = contiger._members_to_host(got)
+    """K10's or its plain twin's outputs (tensors), all of them
+    (``k10_numpy``), against ``k10_host``'s, bitwise."""
+    got = k10_numpy(got)
     if (got is None) != (want is None):
         raise AssertionError(f"K10 on {name}: members "
                              f"{'none' if got is None else 'some'}, the "
@@ -1476,6 +1523,181 @@ def k10_compare(name, got, want) -> None:
             bad = int((a != b).sum()) if a.shape == b.shape else "all"
             raise AssertionError(f"K10 on {name}: {f} differs from the "
                                  f"plain twin in {bad} entries")
+
+
+# counts up to the spectrum's saturation cap (``spectrum.count_cap``: 2^30
+# at the cells' key_bits)
+K11_CAP = 1 << 30
+
+
+def k11_paths(seed: int, lens, counts=(2, 60), seed_share: float = 0.3,
+              mask: bool = True):
+    """K11's inputs for paths of the given lengths -> (counts, starts, ai,
+    seed) numpy: counts int32 in [counts[0], counts[1]], starts int32, ai
+    int32 oriented indices over as many nodes as members, seed a bool mask
+    over those nodes (a share of them set) or None."""
+    rng = np.random.default_rng(seed)
+    lens = np.asarray(lens, np.int64)
+    M = int(lens.sum())
+    starts = (np.cumsum(lens) - lens).astype(np.int32)
+    c = rng.integers(counts[0], counts[1], M, endpoint=True).astype(np.int32)
+    nodes = max(M, 1)
+    ai = rng.integers(0, 2 * nodes, M).astype(np.int32)
+    sd = rng.random(nodes) < seed_share if mask else None
+    return c, starts, ai, sd
+
+
+def k11_cases():
+    """(name, counts, starts, ai, seed, smin, smax) numpy cases of K11's
+    tests: paths of one member; every length a warp takes; lengths around
+    the warp's limit and the block's in-block limit (4096 staged members)
+    and far beyond it; counts over the whole range up to the cap (several
+    radix passes) and at the cap; every count of a path equal; even paths
+    of two values split at and beside their middle; no seed mask; no path."""
+    rng = np.random.default_rng(110)
+    yield "singles", *k11_paths(111, np.ones(1000, np.int64)), 3, 40
+    yield "warp_lengths", *k11_paths(112, rng.integers(1, 33, 3000)), 5, 50
+    yield ("warp_edges", *k11_paths(113, [1, 2, 31, 32, 33, 34, 63, 64, 65,
+                                          256, 257] * 12), 5, 50)
+    yield ("mixed", *k11_paths(114, np.r_[rng.integers(1, 200, 2000),
+                                          [4095, 4096, 4097, 4098, 20000,
+                                           20001]], counts=(0, 1000)), 10,
+           900)
+    yield ("wide_counts", *k11_paths(
+        115, np.r_[rng.integers(1, 100, 500), [5000, 5001, 70000, 70001]],
+        counts=(0, K11_CAP)), 1 << 20, K11_CAP)
+    c, starts, ai, sd = k11_paths(116, np.r_[rng.integers(1, 80, 400),
+                                             [40, 41, 6000, 6001]],
+                                  counts=(K11_CAP - 3, K11_CAP))
+    c[rng.random(len(c)) < 0.5] = K11_CAP  # saturated counts
+    yield "at_cap", c, starts, ai, sd, 2, K11_CAP
+    lens = np.r_[rng.integers(1, 60, 300), [33, 34, 5000, 5001]]
+    c, starts, ai, sd = k11_paths(117, lens)
+    c = np.repeat(rng.integers(0, 1000, len(lens)), lens).astype(np.int32)
+    yield "equal_counts", c, starts, ai, sd, 0, 500
+    parts = []  # even paths of two values: L / 2 or L / 2 - 1 of the lower
+    for L, low in ((5000, 2500), (5000, 2499), (5000, 2501), (40, 20),
+                   (40, 19), (6000, 1), (6000, 5999), (10, 5)):
+        v = np.r_[np.full(low, 7), np.full(L - low, 9 + L % 3)]
+        parts.append(rng.permutation(v))
+    c, starts, ai, sd = k11_paths(118, [len(v) for v in parts])
+    yield "two_values", np.concatenate(parts).astype(np.int32), starts, ai, \
+        sd, 8, 8
+    yield ("no_seed_mask", *k11_paths(119, np.r_[rng.integers(1, 300, 800),
+                                                 [9000]], mask=False), 3, 40)
+    e = np.zeros(0, np.int32)
+    yield "no_path", e, e, e, np.zeros(4, bool), 2, 9
+
+
+def k11_inputs(counts, starts, ai, seed, device):
+    """A k11_cases case's arrays as tensors on ``device``."""
+    import torch
+
+    return (torch.from_numpy(counts).to(device),
+            torch.from_numpy(starts).to(device),
+            torch.from_numpy(ai).to(device),
+            None if seed is None else torch.from_numpy(seed).to(device))
+
+
+def k11_host(counts, starts, ai, seed, smin, smax):
+    """The plain twin on a k11_cases case, on the CPU (tier-1 holds it
+    against the JAX package's lexsort) -> (med, sum, flag) numpy."""
+    from sh_assembly_tpu_torch.ops import path_stats_cuda
+
+    return tuple(t.numpy() for t in path_stats_cuda.path_stats(
+        *k11_inputs(counts, starts, ai, seed, "cpu"), smin, smax))
+
+
+def k11_compare(name, got, want) -> None:
+    """K11's or its twin's (med, sum, flag) tensors against numpy ones,
+    bitwise."""
+    for f, a, b in zip(("med", "sum", "flag"), got, want):
+        a = a.cpu().numpy()
+        if a.dtype != b.dtype or a.shape != b.shape or \
+                not np.array_equal(a, b):
+            bad = int((a != b).sum()) if a.shape == b.shape else "all"
+            raise AssertionError(f"K11 on {name}: {f} differs from the "
+                                 f"plain twin in {bad} entries")
+
+
+def links_ends(seed: int, k: int, n: int = 600, palindromes: int = 20,
+               repeats: int = 10):
+    """The ends of n unitig-like paths of a random genome -> (fhi, flo, thi,
+    tlo) uint64 numpy: consecutive pieces overlap by k - 1 bases (after and
+    before links), a third of them reversed (links to - entries), pieces
+    of one k-mer, siblings of some ends (a first base changed), that many
+    palindromic paths (first k-mer = reverse complement of the last: a
+    repeated table key) and that many first k-mers repeated on later paths
+    (the last write wins)."""
+    import torch
+
+    from sh_assembly_tpu_torch.ops import bits, kmerpack as kp
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, 30, n)  # k-mers a piece
+    cuts = np.r_[0, np.cumsum(lens)]
+    genome = rng.integers(0, 4, int(cuts[-1]) + k).astype(np.uint8)
+    hi, lo = kp.pack_windows(torch.from_numpy(genome)[None], k)
+    hi, lo = bits.to_u64_np(hi[0]), bits.to_u64_np(lo[0])
+    f, t = cuts[:-1], cuts[1:] - 1  # first and last window of each piece
+    fhi, flo, thi, tlo = hi[f], lo[f], hi[t], lo[t]
+    rev = rng.random(n) < 1 / 3  # the piece read on the other strand
+    from sh_assembly_tpu_torch.ops import kmerpack_np as kpn
+
+    rf, rt = kpn.revcomp_packed(fhi, flo, k), kpn.revcomp_packed(thi, tlo, k)
+    fhi, flo, thi, tlo = (np.where(rev, a, b) for a, b in (
+        (rt[0], fhi), (rt[1], flo), (rf[0], thi), (rf[1], tlo)))
+    sib = rng.choice(n, n // 10, replace=False)  # a first base changed
+    top = np.uint64(3) << np.uint64(62)
+    fhi[sib] ^= top & (np.uint64(rng.integers(1, 4)) << np.uint64(62))
+    pal = rng.choice(n, palindromes, replace=False)
+    thi[pal], tlo[pal] = kpn.revcomp_packed(fhi[pal], flo[pal], k)
+    rep = rng.choice(n - 1, repeats, replace=False)
+    fhi[rep + 1], flo[rep + 1] = fhi[rep], flo[rep]
+    return fhi, flo, thi, tlo
+
+
+def links_cases():
+    """(name, fhi, flo, thi, tlo, k) cases of the link join's tests at k =
+    21, 31, 32, 33, 47 and 63 (both words, and hi alone), one path, and
+    no path."""
+    for k in PROBE_KS:
+        yield f"genome_k{k}", *links_ends(120 + k, k), k
+    one = links_ends(119, 47, n=1, palindromes=1, repeats=0)
+    yield "one_palindrome", *one, 47
+    e = np.zeros(0, np.uint64)
+    yield "no_path", e, e, e, e, 47
+
+
+def links_inputs(fhi, flo, thi, tlo, k: int, device):
+    """The link join's inputs from a links_cases case on ``device``: the
+    ends and their reverse complements."""
+    from sh_assembly_tpu_torch.ops import bits, kmerpack as kp
+
+    f = (bits.from_u64_np(fhi, device), bits.from_u64_np(flo, device))
+    t = (bits.from_u64_np(thi, device), bits.from_u64_np(tlo, device))
+    return (*f, *t, *kp.revcomp_packed(*f, k), *kp.revcomp_packed(*t, k))
+
+
+def links_host(fhi, flo, thi, tlo, k: int):
+    """The plain twin on a links_cases case, on the CPU (tier-1 holds it
+    against the JAX package's joins) -> (av4, bv4, sv8) numpy."""
+    from sh_assembly_tpu_torch.ops import links_cuda
+
+    return tuple(v.numpy() for v in links_cuda.links(
+        *links_inputs(fhi, flo, thi, tlo, k, "cpu"), k))
+
+
+def links_compare(name, got, want) -> None:
+    """The link join's (av4, bv4, sv8) tensors against numpy ones,
+    bitwise."""
+    for f, a, b in zip(("after", "before", "siblings"), got, want):
+        a = a.cpu().numpy()
+        if a.dtype != b.dtype or a.shape != b.shape or \
+                not np.array_equal(a, b):
+            bad = int((a != b).sum()) if a.shape == b.shape else "all"
+            raise AssertionError(f"the link join on {name}: {f} differs "
+                                 f"from the plain twin in {bad} entries")
 
 
 def _merged_spectrum(store, n, key_bits):
@@ -1561,7 +1783,8 @@ def phase1_build():
 
     from sh_assembly_tpu_torch.ops import _build, blocksort_cuda, \
         contract_cuda, hash_append_cuda, join_cuda, members_cuda, \
-        merge128_cuda, merge_cuda, node_join_cuda, probe_cuda, stage_cuda
+        merge128_cuda, merge_cuda, node_join_cuda, path_stats_cuda, \
+        probe_cuda, stage_cuda
 
     print("== phase 1: build", flush=True)
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)  # build from source
@@ -1569,13 +1792,13 @@ def phase1_build():
     # one nvcc per source, all started together
     mods = (merge_cuda, join_cuda, merge128_cuda, blocksort_cuda,
             hash_append_cuda, stage_cuda, node_join_cuda, probe_cuda,
-            contract_cuda, members_cuda)
+            contract_cuda, members_cuda, path_stats_cuda)
     with ThreadPoolExecutor(len(mods)) as ex:
         for f in [ex.submit(m.build) for m in mods]:
             f.result()
     for name in ("merge_dedup", "count_join", "merge128", "block_sort",
                  "hash_append", "stage_windows", "node_join", "node_probes",
-                 "contract", "members"):
+                 "contract", "members", "path_stats"):
         print(f"built {name} (sm_90a) -> {_build.lib_path(name)}")
     print(f"  all kernels built in {time.time() - t0:.2f} s")
     # K5's and K6's tiles: their real stacks (8 x 8192 rows) and a long row
@@ -2065,14 +2288,15 @@ def _spies(*targets):
 
 def _launch_counters():
     from sh_assembly_tpu_torch.ops import contract_cuda, hash_append_cuda, \
-        join_cuda, members_cuda, merge128_cuda, merge_cuda, node_join_cuda, \
-        probe_cuda, stage_cuda
+        join_cuda, links_cuda, members_cuda, merge128_cuda, merge_cuda, \
+        node_join_cuda, path_stats_cuda, probe_cuda, stage_cuda
 
     return {"merge_dedup": merge_cuda, "count_join": join_cuda,
             "merge128": merge128_cuda, "hash_append": hash_append_cuda,
             "stage_windows": stage_cuda, "node_join": node_join_cuda,
             "node_probes": probe_cuda, "contract": contract_cuda,
-            "members": members_cuda}
+            "members": members_cuda, "path_stats": path_stats_cuda,
+            "links": links_cuda}
 
 
 def _reset_launches():
@@ -2142,9 +2366,10 @@ def phase6_pipeline_parity():
                              "the CPU pipeline's")
     if not all(launches[n] for n in ("count_join", "merge128",
                                      "stage_windows", "node_join",
-                                     "node_probes", "contract", "members")):
-        raise AssertionError(f"K2, K3, K6, K7, K8, K9 or K10 never launched "
-                             f"in cli.contiger: {launches}")
+                                     "node_probes", "contract", "members",
+                                     "path_stats", "links")):
+        raise AssertionError(f"K2, K3, K6-K11 or the link join never "
+                             f"launched in cli.contiger: {launches}")
     print("  cli.contiger's CUDA unitigs.fa byte-identical to the CPU "
           "pipeline's")
 
@@ -2229,6 +2454,11 @@ def phase7_genome():
     if launches["members"] != 1:
         raise AssertionError(f"the members step did not run through K10 (one "
                              f"placement): {launches['members']} placements")
+    if launches["path_stats"] != 1 or launches["links"] != 1:
+        raise AssertionError(f"the medians and the link join did not run "
+                             f"through K11 and K7 once each: "
+                             f"{launches['path_stats']} and "
+                             f"{launches['links']} calls")
     print("  phase breakdown:")
     for name, s in sorted(profiling.GLOBAL.stats.items(),
                           key=lambda kv: -kv[1].seconds):
@@ -2262,16 +2492,18 @@ def phase7_genome():
           f"join2 calls, {joins_plain} calls of join2_plain")
     # one table a Contiger run: built once (this store never fills or
     # outgrows its padded extent), each round that found phantoms appends
-    # them, every round and the graph probe it
+    # them, every round and the graph probe it; and the host assembly's
+    # link table, built and probed once
     if launches["node_probes"] != closure + graph or probes_plain or \
-            graph != 1 or kinds != dict(build=1, append=closure - 1,
-                                        probe=closure + graph) or \
+            graph != 1 or kinds != dict(build=2, append=closure - 1,
+                                        probe=closure + graph + 1) or \
             launches["node_join"] != sum(kinds.values()) or joins or \
             joins_plain:
         raise AssertionError("the probe programs did not probe through one "
                              "K8 launch a call and one K7 table (a build, "
                              "an append a round that found phantoms, a "
-                             "probe a round and one for the graph)")
+                             "probe a round and one for the graph), and "
+                             "the link join through a table of its own")
     torch.cuda.synchronize()
     k7 = [(name, ints, a.elapsed_time(b)) for name, ints, a, b in k7_calls]
     for name, ints, ms in k7:
@@ -3719,11 +3951,9 @@ def phase18_k10(device, main_launches: int):
     name, *case = next(c for c in k10_cases(large=True)
                        if c[0] == "cell_extent")
     cn, hi, lo, real, counts, k = case
-    from sh_assembly_tpu_torch.models import contiger
-
     args = k10_inputs(*case, device)
     M, Np = len(cn), len(hi)
-    want = contiger._members_to_host(members_cuda.members_plain(*args, k))
+    want = k10_numpy(members_cuda.members_plain(*args, k))
     k10_compare("the cell's extent", members_cuda.members_cuda(*args, k),
                 want)
     plain_ms = _time_ms(lambda: members_cuda.members_plain(*args, k), 3)
@@ -3753,6 +3983,150 @@ def phase18_k10(device, main_launches: int):
           f"({t10['bound_by']}, {moved / 1e9:.3f} GB); {main_launches} "
           f"placement(s) on phase 7's main path", flush=True)
     return t10
+
+
+# the kept paths of a yeast-cell job (scer.pipeline.30x), as their lengths
+# fall: (least length, largest length, paths), from one job's K11 inputs on
+# an H100 (179,684 paths, 12,452,582 members, the longest 2,274)
+YEAST_PATHS = ((1, 1, 105_837), (2, 3, 6_550), (4, 7, 2_338),
+               (8, 15, 4_112), (16, 31, 6_887), (32, 32, 370),
+               (33, 63, 10_058), (64, 127, 11_673), (128, 255, 14_894),
+               (256, 511, 12_152), (512, 1023, 4_390), (1024, 2047, 420),
+               (2048, 2274, 3))
+
+
+def yeast_lengths(seed: int = 190) -> np.ndarray:
+    """Path lengths drawn from YEAST_PATHS: each bin's paths, lengths
+    uniform within the bin."""
+    rng = np.random.default_rng(seed)
+    lens = [rng.integers(lo, hi, n, endpoint=True)
+            for lo, hi, n in YEAST_PATHS]
+    return rng.permutation(np.concatenate(lens))
+
+
+def _k11_time(device, tag, counts, starts, ai, seed, smin, smax) -> dict:
+    """K11 against its plain twin on the card at one extent, bitwise, and
+    timed beside it and its byte bound."""
+    import torch
+
+    from sh_assembly_tpu_torch.ops import path_stats_cuda as ps
+
+    args = (counts, starts, ai, seed, smin, smax)
+    want = tuple(t.cpu().numpy() for t in ps.path_stats_plain(*args))
+    k11_compare(tag, ps.path_stats_cuda(*args), want)
+    ms = _queued_ms(lambda: ps.path_stats_cuda(*args), 10)
+    wms = _time_ms(lambda: ps.path_stats_cuda(*args), 5)
+    pms = _time_ms(lambda: ps.path_stats_plain(*args), 3)
+    M, P = counts.numel(), starts.numel()
+    lens = torch.diff(starts.long(), append=torch.tensor([M], device=device))
+    hits = int(((counts >= smin) & (counts <= smax)).sum())
+    # each member's count read; where it lies in the solid range, its
+    # oriented index and its node's seed byte; each path's start read and
+    # its median, sum and flag written (17 B)
+    moved = 4 * M + 5 * hits + 4 * P + 17 * P
+    t = dict(ms=ms, wrapper_ms=wms, plain_ms=pms, library_ms=None,
+             members=M, paths=P, max_len=int(lens.max()),
+             warp_paths=int((lens <= ps.limits()["warp_max"]).sum()),
+             moved=moved, **bound(moved, 0))
+    print(f"  K11 at {tag} ({M} members of {P} paths, {t['warp_paths']} of "
+          f"them a warp's, the longest {t['max_len']}): identical; device "
+          f"{ms:.4f} ms (a wrapper call {wms:.4f} ms), plain {pms:.3f} ms, "
+          f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+          f"{moved / 1e6:.1f} MB)", flush=True)
+    return t
+
+
+def _links_time(device, tag, fhi, flo, thi, tlo, k) -> dict:
+    """The link join through K7 against its plain twin on the card at one
+    extent, bitwise, and timed beside it and its byte bound."""
+    from sh_assembly_tpu_torch.ops import kmerpack as kp, links_cuda
+
+    args = (fhi, flo, thi, tlo, *kp.revcomp_packed(fhi, flo, k),
+            *kp.revcomp_packed(thi, tlo, k), k)
+    want = tuple(v.cpu().numpy() for v in links_cuda.links_plain(*args))
+    links_compare(tag, links_cuda.links_cuda(*args), want)
+    ms = _queued_ms(lambda: links_cuda.links_cuda(*args), 10)
+    wms = _time_ms(lambda: links_cuda.links_cuda(*args), 5)
+    pms = _time_ms(lambda: links_cuda.links_plain(*args), 3)
+    P2 = fhi.numel()
+    # the ends and their reverse complements read (64 B a path), the two
+    # table rows written and read once (64 B), the 16 signed ids written
+    moved = P2 * (64 + 64 + 4 * links_cuda.PROBES)
+    found = sum(int((v != 0).sum()) for v in want)
+    t = dict(ms=ms, wrapper_ms=wms, plain_ms=pms, library_ms=None, paths=P2,
+             found=found, moved=moved, **bound(moved, 0))
+    print(f"  link join at {tag} ({P2} paths, {links_cuda.PROBES * P2} "
+          f"probes, {found} found): identical; device {ms:.4f} ms (a "
+          f"wrapper call {wms:.4f} ms), plain {pms:.3f} ms, bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}, {moved / 1e6:.1f} MB)", flush=True)
+    return t
+
+
+def phase19_k11_links(device, main_launches: dict):
+    """K11 and the link join through K7 against their plain twins, bitwise,
+    on their cases; then at phase 17's extent (K10's members of its forest)
+    and at the yeast cell's (``YEAST_PATHS``), timed beside the twins and
+    their byte bounds.  Returns their timing, with ``main_launches``, their
+    launches on phase 7's main path."""
+    import torch
+
+    from sh_assembly_tpu_torch.ops import bits, links_cuda, members_cuda
+    from sh_assembly_tpu_torch.ops import path_stats_cuda as ps
+
+    print("== phase 19: K11 (medians) and the link join (K7) against their "
+          f"plain twins; K11's limits {ps.limits()}", flush=True)
+    before = ps.LAUNCHES, links_cuda.LAUNCHES
+    names, joins = [], 0
+    for name, *case in k11_cases():
+        want = k11_host(*case)
+        args = k11_inputs(*case[:4], device)
+        k11_compare(name, ps.path_stats(*args, *case[4:]), want)
+        k11_compare(name, ps.path_stats_plain(*args, *case[4:]), want)
+        names.append(name)
+    for name, *case in links_cases():
+        want = links_host(*case)
+        args = links_inputs(*case, device)
+        links_compare(name, links_cuda.links(*args, case[-1]), want)
+        links_compare(name, links_cuda.links_plain(*args, case[-1]), want)
+        names.append(name)
+        joins += len(case[0]) > 0
+    if (ps.LAUNCHES - before[0], links_cuda.LAUNCHES - before[1]) != \
+            (len(names) - sum(1 for _ in links_cases()), joins):
+        raise AssertionError("K11 or the link join did not launch once a "
+                             "case")
+    print(f"  {len(names)} cases identical to the plain twins on the CPU and "
+          f"on the card ({', '.join(names)})")
+
+    # phase 17's extent: K10's members of its forest, a seed mask over its
+    # nodes; the link join on every kept path's ends
+    _, *case = next(c for c in k10_cases(large=True) if c[0] == "cell_extent")
+    k = case[-1]
+    ai, ohi, olo, _, counts, starts, _ = members_cuda.members(
+        *k10_inputs(*case, device), k)
+    g = torch.Generator(device=device).manual_seed(19)
+    seed = torch.rand(len(case[1]), device=device, generator=g) < 0.3
+    t11 = dict(cell=_k11_time(device, "phase 17's extent", counts, starts,
+                              ai, seed, 10, 50))
+    last = torch.cat([starts[1:].long(),
+                      torch.tensor([ai.numel()], device=device)]) - 1
+    first = starts.long()
+    tl = dict(cell=_links_time(device, "phase 17's extent", ohi[first],
+                               olo[first], ohi[last], olo[last], k))
+    del ai, ohi, olo, counts, starts, seed, first, last
+    # the yeast cell's extent: its paths' lengths, counts of a 30x job; the
+    # link join on the ends of as many pieces of a genome (the keep rule
+    # leaves one path of each mirror pair)
+    lens = yeast_lengths()
+    c, st, a, sd = k11_paths(191, lens)
+    t11["yeast"] = _k11_time(device, "the yeast cell's extent",
+                             *k11_inputs(c, st, a, sd, device), 10, 50)
+    ends = links_ends(192, 47, n=len(lens), palindromes=20)
+    tl["yeast"] = _links_time(device, "the yeast cell's extent",
+                              *(bits.from_u64_np(e, device) for e in ends),
+                              47)
+    torch.cuda.empty_cache()
+    print(f"  launches on phase 7's main path: {main_launches}", flush=True)
+    return dict(k11=t11, links=tl, main_launches=main_launches)
 
 
 def phase12_profiles():
@@ -3856,6 +4230,8 @@ def main() -> int:
         timing16 = phase16_k7_k8(dev)
         timing["contract"] = phase17_k9(dev)
         timing["members"] = phase18_k10(dev, launches["members"])
+        t19 = phase19_k11_links(dev, {n: launches[n] for n in (
+            "path_stats", "links")})
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     loaded = [m for m in sys.modules
@@ -3895,6 +4271,17 @@ def main() -> int:
         main_graph_probe_ms=j7["graph"]["main_graph_probe_ms"],
         **{f"later_{k}": later[k] for k in ("ms", "append_ms", "probe_ms",
                                             "plain_ms", "bound_ms")})
+    # K11 at phase 17's extent, the yeast cell's beside it; the link join
+    # (through K7) at both, under the node join's entry
+    k11, ln = t19["k11"], t19["links"]
+    timing["path_stats"] = {
+        **{k: k11["cell"][k] for k in ("ms", "wrapper_ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms")},
+        **{f"yeast_{k}": k11["yeast"][k] for k in ("ms", "wrapper_ms",
+                                                   "plain_ms", "bound_ms")}}
+    timing["node_join"].update(
+        **{f"links_{w}_{k}": ln[w][k] for w in ("cell", "yeast")
+           for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms")})
     ops = "sh_assembly_tpu/ops/"
     pipeline, prof = "phase 7 (cli.pipeline)", \
         "phase 8 (profile.blocksort.main); the main path: 0"
@@ -3928,7 +4315,12 @@ def main() -> int:
             ("members", "members",
              "sh_assembly_tpu/models/contiger.py:1123 _finalize_host, its "
              "members step (:1131-1167: mask, np.lexsort, gathers; numpy on "
-             "the host there, not a pl.pallas_call)", 0, pipeline)]
+             "the host there, not a pl.pallas_call)", 0, pipeline),
+            ("path_stats", "path_stats",
+             "sh_assembly_tpu/models/contiger.py:1123 _finalize_host, its "
+             "medians, sums and seed flags (:1177-1197: np.lexsort, "
+             "np.add.reduceat; numpy on the host there, not a "
+             "pl.pallas_call)", 0, pipeline)]
     print(smi)  # the card and its power limit again, beside the numbers
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",

@@ -25,11 +25,13 @@ and the same output (``unitigs.fa`` byte-identical):
      (``ops/contract_cuda``: the ranking, the reverse complements and the
      mirror keep rule) and kernel K10 (``ops/members_cuda``: the kept
      paths' members in order), each on CUDA tensors, their plain twins on
-     any other; then the vectorised host assembly: sequences, medians,
-     links, the solid-seed component filter, FASTA.  Copied from the JAX
-     package; every device array reaches it as numpy uint64 through
-     ``bits.to_u64_np``, because the assembly compares k-mer words
-     unsigned.
+     any other; then the host assembly: the mirror dedup (numpy), each
+     path's median, count sum and seed flag (kernel K11,
+     ``ops/path_stats_cuda``) and the link join (a K7 table of the paths'
+     ends, ``ops/links_cuda``) where the members lie, then on the host the
+     solid-seed component filter, the sequences and FASTA, copied from the
+     JAX package; the first k-mers reach it as numpy uint64 through
+     ``bits.to_u64_np``, because it reads k-mer words unsigned.
 
 The node order decides the unitig numbering in ``unitigs.fa``: phantoms
 are appended in the order the closure finds them, and a round whose output
@@ -52,8 +54,8 @@ import torch
 from .. import config as cfg
 from ..io import fastq
 from ..ops import bits, contract_cuda, kmerpack as kp, kmerpack_np as kpn, \
-    members_cuda, merge128_cuda, node_join_cuda, packio, probe_cuda, \
-    spectrum as sp, stage_cuda
+    links_cuda, members_cuda, merge128_cuda, node_join_cuda, packio, \
+    path_stats_cuda, probe_cuda, spectrum as sp, stage_cuda
 from ..utils import dna, profiling
 from ..utils.logging import log
 
@@ -726,8 +728,8 @@ def assemble_unitigs_arrays(
     Np = hi_pad.shape[0]
     if seed is not None:
         # phantoms (appended after the collected nodes) are never seeds
-        is_seed = np.zeros(Np, bool)
-        is_seed[:len(seed)] = seed.cpu().numpy() != 0
+        is_seed = torch.zeros(Np, dtype=torch.bool, device=seed.device)
+        is_seed[:len(seed)] = seed != 0
     with profiling.phase("contiger:probe graph"):
         nsucc, chain_next, node_counts = build_oriented_graph(
             spec, hi_pad, lo_pad, k, key_bits, params.kmer_abundance_min,
@@ -746,24 +748,26 @@ def finalize_unitigs(
     node_counts: torch.Tensor,
     chain_next: torch.Tensor,
     params: cfg.ContigerParams,
-    is_seed: np.ndarray | None = None,
+    is_seed: np.ndarray | torch.Tensor | None = None,
 ) -> ArrayUnitigs:
-    """Contraction + vectorized host assembly.
+    """Contraction + the host assembly.
 
     hi/lo: padded node k-mers [Np] (sentinel holes allowed anywhere);
     real: bool[Np] live-node mask; chain_next: int32[2*Np] oriented
     successor indices (-1 = none), on the nodes' device.  is_seed:
-    bool[Np], True where the node k-mer is some read's middle k-mer; None
-    = seed metadata unavailable, fall back to the component-contains-solid
-    rule.
+    bool[Np] (numpy, or a tensor), True where the node k-mer is some
+    read's middle k-mer; None = seed metadata unavailable, fall back to
+    the component-contains-solid rule.
 
-    The contraction (K9, ``ops/contract_cuda``) and the members step (K10,
-    ``ops/members_cuda``) run where the forest lies: each dispatcher
-    launches its kernel on CUDA tensors and its plain twin on any other.
-    Nothing crosses but n_bad, read in ``.d2h`` (which so waits for the
-    ranking), and the member-ordered arrays, as uint64 k-mer words
-    (``bits.to_u64_np``): the rest of the host assembly orders them with
-    numpy's unsigned comparisons (``_finalize_host``).
+    The contraction (K9, ``ops/contract_cuda``), the members step (K10,
+    ``ops/members_cuda``), the medians (K11, ``ops/path_stats_cuda``) and
+    the link join (K7, ``ops/links_cuda``) run where the forest lies:
+    each dispatcher launches its kernel on CUDA tensors and its plain twin
+    on any other.  What crosses to the host: n_bad, read in ``.d2h``
+    (which so waits for the ranking), per-path arrays and each member's
+    last base (``_members_to_host``), the medians' and the links' results,
+    and the first k-mer of each kept path, as uint64 words
+    (``bits.to_u64_np``) for the sequences (``_finalize_host``).
     """
     k = params.k
     contract_cuda.check(chain_next, hi, lo, k)
@@ -782,6 +786,11 @@ def finalize_unitigs(
     with profiling.phase("contiger:host assembly"):
         real_t = torch.from_numpy(np.ascontiguousarray(real, dtype=bool)).to(
             hi.device)
+        if isinstance(is_seed, np.ndarray):
+            is_seed = torch.from_numpy(np.ascontiguousarray(is_seed,
+                                                            dtype=bool))
+        if is_seed is not None:
+            is_seed = is_seed.to(hi.device)  # where the members will lie
         with profiling.phase("contiger:host assembly.members", sync=False):
             mem = _members_to_host(members_cuda.members(
                 head, dist, tail_of, keep, hi, lo, rhi, rlo, real_t,
@@ -792,44 +801,49 @@ def finalize_unitigs(
 
 
 class _Members(NamedTuple):
-    """The members of kept oriented paths in (head, dist) order, as the
-    host assembly reads them (numpy)."""
+    """The members of kept oriented paths in (head, dist) order: K10's
+    tensors where they lie, and what of them the host reads (numpy)."""
 
-    ai: np.ndarray  # int64 oriented index
-    node_i: np.ndarray  # int64 ai >> 1
-    ohi: np.ndarray  # uint64 oriented k-mer
-    olo: np.ndarray
-    lastb: np.ndarray  # uint8 its last base
-    counts_mem: np.ndarray  # int64 its node's count
-    starts: np.ndarray  # int64 [P] each path's first member
+    ai: torch.Tensor  # int32 [Mm] oriented index
+    ohi: torch.Tensor  # int64 [Mm] oriented k-mer
+    olo: torch.Tensor
+    counts: torch.Tensor  # int32 [Mm] its node's count
+    starts_t: torch.Tensor  # int32 [P] each path's first member
+    ends_t: torch.Tensor  # int64 [P] each path's last member
+    lastb: np.ndarray  # uint8 [Mm] each member's last base
+    starts: np.ndarray  # int64 [P]
     lens: np.ndarray  # int64 [P]
-    tail_pos: np.ndarray  # int64 [P] each path's last member
     head_idx: np.ndarray  # int64 [P] each path's head
+    tail_ai: np.ndarray  # int64 [P] its last member's oriented index
 
 
 def _members_to_host(placed) -> _Members | None:
-    """K10's (or its plain twin's) member-ordered tensors -> the arrays
-    the rest of the host assembly reads.  None where there is no member."""
-    ai_t, ohi, olo, lastb, counts, starts, head_idx = placed
-    if ai_t.numel() == 0:
+    """K10's (or its plain twin's) member-ordered tensors -> a ``_Members``:
+    the per-path arrays and the last bases copied to the host, the rest
+    left where it lies.  None where there is no member."""
+    ai, ohi, olo, lastb, counts, starts_t, head_idx = placed
+    Mm = ai.numel()
+    if Mm == 0:
         return None
-    ai = ai_t.cpu().numpy().astype(np.int64)
-    starts = starts.cpu().numpy().astype(np.int64)
-    lens = np.diff(np.r_[starts, len(ai)])
-    return _Members(ai, ai >> 1, bits.to_u64_np(ohi), bits.to_u64_np(olo),
-                    lastb.cpu().numpy(),
-                    counts.cpu().numpy().astype(np.int64), starts, lens,
-                    starts + lens - 1,
-                    head_idx.cpu().numpy().astype(np.int64))
+    ends_t = torch.cat([starts_t[1:].long(),
+                        torch.full((1,), Mm, device=ai.device)]) - 1
+    starts = starts_t.cpu().numpy().astype(np.int64)
+    return _Members(ai, ohi, olo, counts, starts_t, ends_t,
+                    lastb.cpu().numpy(), starts,
+                    np.diff(np.r_[starts, Mm]),
+                    head_idx.cpu().numpy().astype(np.int64),
+                    ai[ends_t].cpu().numpy().astype(np.int64))
 
 
 def _finalize_host(mem: _Members, params, is_seed=None):
     """The host assembly after the members step: mirror dedup, medians,
-    links, components, sequences."""
+    links, components, sequences.  The medians (K11) and the link join
+    (K7) run on the members' device and each ends by reading its results
+    to the host."""
     k = params.k
-    ai, node_i, ohi, olo, lastb, counts_mem, starts, lens, tail_pos, \
-        head_idx = mem
+    starts, lens = mem.starts, mem.lens
     P = len(starts)
+    dev = mem.ai.device
 
     # ---- mirror dedup on oriented indices --------------------------------
     with profiling.phase("contiger:host assembly.dedup", sync=False):
@@ -838,9 +852,9 @@ def _finalize_host(mem: _Members, params, is_seed=None):
         # EQUAL, which happens exactly when the unitig is palindromic-headed.
         # The unordered pair {head, flip(tail)} identifies a mirror pair
         # exactly, so dedup on it is collision-free.
-        mirror_idx = ai[tail_pos] ^ 1
-        pk_lo = np.minimum(head_idx, mirror_idx).astype(np.uint64)
-        pk_hi = np.maximum(head_idx, mirror_idx).astype(np.uint64)
+        mirror_idx = mem.tail_ai ^ 1
+        pk_lo = np.minimum(mem.head_idx, mirror_idx).astype(np.uint64)
+        pk_hi = np.maximum(mem.head_idx, mirror_idx).astype(np.uint64)
         comb = (pk_lo << np.uint64(32)) | pk_hi
         _, first_occ = np.unique(comb, return_index=True)
         sel = np.zeros(P, bool)
@@ -848,93 +862,50 @@ def _finalize_host(mem: _Members, params, is_seed=None):
 
     # ---- per-path medians (reference median, Utility.cpp:27-39) ----------
     with profiling.phase("contiger:host assembly.medians", sync=False):
-        seg_id = np.repeat(np.arange(P, dtype=np.int64), lens)
-        ordm = np.lexsort((counts_mem, seg_id))
-        sc = counts_mem[ordm]
-        mid = starts + lens // 2
-        med = np.where(lens % 2 == 1, sc[mid],
-                       (sc[np.maximum(mid - 1, 0)] + sc[mid]) // 2)
-        # mean k-mer abundance (gatb RCTC coverage; see Unitig.mean_abundance)
-        meanf = np.add.reduceat(counts_mem, starts).astype(np.float64) / lens
-
-        # ---- solid seed flag per path (contig_assembly.cpp:2082) ---------
-        # the reference only STARTS traversal from read-MIDDLE k-mers whose
-        # count lies in [-x, -X] (contig_assembly.cpp:2068-2082); components
-        # unreachable from such a seed are never discovered.  When middle-kmer
-        # metadata is unavailable (hand-built batches), fall back to "any solid
-        # k-mer seeds" — a superset.
+        # the median and the sum of each path's counts, and its solid seed
+        # flag (contig_assembly.cpp:2082): the reference only STARTS
+        # traversal from read-MIDDLE k-mers whose count lies in [-x, -X]
+        # (contig_assembly.cpp:2068-2082); components unreachable from such
+        # a seed are never discovered.  When middle-kmer metadata is
+        # unavailable (hand-built batches), "any solid k-mer seeds" — a
+        # superset.
         smin = params.solid_kmer_abundance_min
         smax = params.solid_kmer_abundance_max
-        seed_mem = (counts_mem >= smin) & (counts_mem <= smax)
-        if is_seed is not None:
-            seed_mem = seed_mem & np.asarray(is_seed)[node_i]
-        path_seed = np.add.reduceat(seed_mem.astype(np.int64), starts) > 0
+        med, total, path_seed = path_stats_cuda.path_stats(
+            mem.counts, mem.starts_t, mem.ai, is_seed, smin, smax)
+        # ---- select deduped paths: P bytes to the card, one read back ---
+        pids = torch.nonzero(torch.from_numpy(sel).to(dev)).squeeze(1)
+        med2, total2, seed2 = torch.stack(
+            [med[pids], total[pids], path_seed[pids].long()]).cpu().numpy()
+        seed2 = seed2 != 0
+        pids_np = np.flatnonzero(sel)
+        P2 = len(pids_np)
+        lens2 = lens[pids_np]
+        starts2 = starts[pids_np]
+        # mean k-mer abundance (gatb RCTC coverage; see Unitig.mean_abundance)
+        mean2 = total2.astype(np.float64) / lens2
 
-        # ---- select deduped paths ----------------------------------------
-        pids = np.flatnonzero(sel)
-        P2 = len(pids)
-        fhi, flo = ohi[starts[pids]], olo[starts[pids]]  # first kmer
-        thi, tlo = ohi[tail_pos[pids]], olo[tail_pos[pids]]  # last kmer
-        lens2 = lens[pids]
-        med2 = med[pids]
-        mean2 = meanf[pids]
-        seed2 = path_seed[pids]
-        starts2 = starts[pids]
-
-    # ---- link table: first kmer -> +(id+1), RC(last kmer) -> -(id+1) -----
+    # ---- links: first kmer -> +(id+1), RC(last kmer) -> -(id+1) ----------
     with profiling.phase("contiger:host assembly.links", sync=False):
-        # (track_kmer_worker, contig_assembly.cpp:956-1010).  Insertion order
-        # mirrors the dict the previous implementation used: for each id, RC
-        # then first; the LAST write wins on key collisions (palindromic
-        # unitigs collapse to the + entry).
-        rthi, rtlo = kpn.revcomp_packed(thi, tlo, k)  # == mirror head kmer
-        tab_hi = np.empty(2 * P2, np.uint64)
-        tab_lo = np.empty(2 * P2, np.uint64)
-        tab_val = np.empty(2 * P2, np.int64)
-        ids1 = np.arange(P2, dtype=np.int64) + 1
-        tab_hi[0::2], tab_lo[0::2], tab_val[0::2] = rthi, rtlo, -ids1
-        tab_hi[1::2], tab_lo[1::2], tab_val[1::2] = fhi, flo, ids1
-        ordt = np.lexsort((tab_lo, tab_hi))  # stable: position breaks ties
-        th, tl, tv = tab_hi[ordt], tab_lo[ordt], tab_val[ordt]
-        last_of_run = np.empty(2 * P2, bool)
-        last_of_run[-1] = True
-        last_of_run[:-1] = (th[1:] != th[:-1]) | (tl[1:] != tl[:-1])
-        key_hi, key_lo, key_val = (
-            th[last_of_run], tl[last_of_run], tv[last_of_run])
-
-        # ---- link queries (build_graph_worker, contig_assembly.cpp:1012-1084)
-        # after: (last k-1 bases) + X for X in ACGT;
-        # before: RC(first k-1 bases) + X for X in TGCA (shift_in_base on the
-        # RC'd first kmer reproduces RC(seq[:k-1]) + X exactly).
-        rfhi, rflo = kpn.revcomp_packed(fhi, flo, k)
-        qa_hi = np.empty((4, P2), np.uint64)
-        qa_lo = np.empty((4, P2), np.uint64)
-        qb_hi = np.empty((4, P2), np.uint64)
-        qb_lo = np.empty((4, P2), np.uint64)
-        for X in range(4):
-            qa_hi[X], qa_lo[X] = kpn.shift_in_base(thi, tlo, X, k)
-        for xi, X in enumerate((3, 2, 1, 0)):
-            qb_hi[xi], qb_lo[xi] = kpn.shift_in_base(rfhi, rflo, X, k)
-        ja = kpn.join(key_hi, key_lo, qa_hi.reshape(-1), qa_lo.reshape(-1))
-        jb = kpn.join(key_hi, key_lo, qb_hi.reshape(-1), qb_lo.reshape(-1))
-        av4 = np.where(ja >= 0, key_val[np.maximum(ja, 0)], 0).reshape(4, P2)
-        bv4 = np.where(jb >= 0, key_val[np.maximum(jb, 0)], 0).reshape(4, P2)
-
-        # ---- sibling discovery edges (connectivity only, never dumped) ---
-        # the reference SPAWNS before-candidates that share a tail junction's
-        # (k-1)-suffix (contig_assembly.cpp:3140-3165): a unitig discovered
-        # that way belongs to the discovering component even when no k-1
-        # overlap link exists (e.g. an isolated phantom sibling).  Probe the 4
-        # suffix-siblings of both mirror tails.
-        qs_hi = np.empty((8, P2), np.uint64)
-        qs_lo = np.empty((8, P2), np.uint64)
-        for X in range(4):
-            qs_hi[X], qs_lo[X] = kpn.replace_first_base(thi, tlo, X, k)
-            qs_hi[4 + X], qs_lo[4 + X] = kpn.replace_first_base(
-                rfhi, rflo, X, k)
-        jsib = kpn.join(key_hi, key_lo, qs_hi.reshape(-1), qs_lo.reshape(-1))
-        sv8 = np.where(jsib >= 0, key_val[np.maximum(jsib, 0)],
-                       0).reshape(8, P2)
+        # (track_kmer_worker, contig_assembly.cpp:956-1010, and
+        # build_graph_worker, :1012-1084): each path's ends against the 4
+        # after-, 4 before- and 8 sibling probes of every path; the last
+        # write wins on key collisions (palindromic unitigs collapse to the
+        # + entry).  The sibling edges are for connectivity only, never
+        # dumped: the reference SPAWNS before-candidates that share a tail
+        # junction's (k-1)-suffix (contig_assembly.cpp:3140-3165).
+        first = mem.starts_t[pids].long()
+        last = mem.ends_t[pids]
+        fhi, flo = mem.ohi[first], mem.olo[first]
+        thi, tlo = mem.ohi[last], mem.olo[last]
+        rfhi, rflo = kp.revcomp_packed(fhi, flo, k)
+        rthi, rtlo = kp.revcomp_packed(thi, tlo, k)  # == mirror head kmer
+        av4, bv4, sv8 = (v.cpu().numpy().astype(np.int64) for v in
+                         links_cuda.links(fhi, flo, thi, tlo, rfhi, rflo,
+                                          rthi, rtlo, k))
+        # palindromes: head kmer == mirror head kmer <=> seq == RC(seq)
+        pal2 = ((fhi == rthi) & (flo == rtlo)).cpu().numpy()
+        fhi, flo = bits.to_u64_np(fhi), bits.to_u64_np(flo)
 
     # ---- component seed filter (-x/-X semantics) --------------------------
     with profiling.phase("contiger:host assembly.components", sync=False):
@@ -990,17 +961,14 @@ def _finalize_host(mem: _Members, params, is_seed=None):
         midx = starts_f[segf] + within
         nz = within >= 1
         pos = offs[segf] + (k - 1) + within
-        seq_codes[pos[nz]] = lastb[midx[nz]]
-
-        # ---- palindromes: head kmer == mirror head kmer <=> seq == RC(seq)
-        pal = (fhi_f == rthi[fsel]) & (flo_f == rtlo[fsel])
+        seq_codes[pos[nz]] = mem.lastb[midx[nz]]
 
         return ArrayUnitigs(
             k=k, seq_codes=seq_codes, offsets=offs.astype(np.int64),
             med=med2[fsel].astype(np.int64),
             after_ptr=after_ptr, after_val=after_val,
             before_ptr=before_ptr, before_val=before_val,
-            n_palindromes=int(pal.sum()),
+            n_palindromes=int(pal2[fsel].sum()),
             mean=mean2[fsel])
 
 

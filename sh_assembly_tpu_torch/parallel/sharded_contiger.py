@@ -551,7 +551,7 @@ def finish_parts(parts: list[ShardPart], saw_seed_meta: bool,
     peak = max(int(p.valid.sum()) for p in parts)
     log(f"[Contiger/sharded] {int(real.sum())} distinct solid k-mers over "
         f"{n} shards (peak shard fill {peak}/{Cl})")
-    is_seed = (torch.cat([p.seed for p in parts]).cpu().numpy() != 0
+    is_seed = (torch.cat([p.seed for p in parts]) != 0
                if saw_seed_meta else None)
     hi = torch.cat([p.hi for p in parts])
     return contiger.finalize_unitigs(

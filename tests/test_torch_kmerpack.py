@@ -91,10 +91,6 @@ def test_base_ops_match_jax(k):
                             k)
     _eq(got[0], ref[0])
     _eq(got[1], ref[1])
-    for X in range(4):
-        for a, b in zip(kmerpack_np.shift_in_base(jhi, jlo, X, k),
-                        jkpn.shift_in_base(jhi, jlo, X, k)):
-            np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("k", KS)
@@ -115,9 +111,6 @@ def test_join2_matches_jax(k):
     assert got.dtype == torch.int32
     _eq(got, ref)
     assert int((got >= 0).sum()) == 500
-    np.testing.assert_array_equal(
-        kmerpack_np.join(table[:, 0], table[:, 1], q[:, 0], q[:, 1]),
-        jkpn.join(table[:, 0], table[:, 1], q[:, 0], q[:, 1]))
 
 
 def test_sort_pairs_is_unsigned_lexicographic():

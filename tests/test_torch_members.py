@@ -24,7 +24,6 @@ import pytest
 import torch
 
 import chip_smoke
-from sh_assembly_tpu_torch.models import contiger
 from sh_assembly_tpu_torch.ops import members_cuda
 
 from test_torch_contract import _finalize, _finalize_inputs, \
@@ -37,9 +36,8 @@ MEMBERS = "contiger:host assembly.members"
 
 def jax_members(cn, hi, lo, real, counts, k):
     """The reference: the JAX package's members step (``_finalize_host``,
-    up to its mirror dedup) on its own contraction (``jax_k9``) -> the
-    ``_Members`` the port's host assembly reads, or None where no kept path
-    has a member."""
+    up to its mirror dedup) on its own contraction (``jax_k9``) ->
+    ``chip_smoke.K10Members``, or None where no kept path has a member."""
     head, dist, _, keep, rhi, rlo = jax_k9(cn, hi, lo, k)
     from sh_assembly_tpu.ops import kmerpack_np as jkpn
 
@@ -57,10 +55,10 @@ def jax_members(cn, hi, lo, real, counts, k):
     starts = np.flatnonzero(
         np.r_[True, heads[1:] != heads[:-1]]).astype(np.int64)
     lens = np.diff(np.r_[starts, len(heads)])
-    return contiger._Members(ai, node_i, ohi, olo,
-                             jkpn.last_base(ohi, olo, k),
-                             counts.astype(np.int64)[node_i], starts, lens,
-                             starts + lens - 1, heads[starts])
+    return chip_smoke.K10Members(ai, node_i, ohi, olo,
+                                 jkpn.last_base(ohi, olo, k),
+                                 counts.astype(np.int64)[node_i], starts,
+                                 lens, starts + lens - 1, heads[starts])
 
 
 @pytest.fixture(scope="module")
